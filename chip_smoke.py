@@ -5,7 +5,8 @@
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
 
-0. the card (``nvidia-smi`` name and power limit) and the kernel build;
+0. the card (``nvidia-smi`` name and power limit) and the kernel build
+   (one ``nvcc`` per source, all at once; registers and spills printed);
 1. ``flash_decode`` (kernel) against ``flash_decode_plain`` on the card,
    six cases: (a) the serving shape b=8, hq=hkv=16, d=128, S=1024, bf16,
    ragged pos 100..1000; (b) the same in fp32; (c) GQA 32/8 over a cache
@@ -17,6 +18,21 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    At shape (a) it times the kernel, the plain version and, as a
    yardstick only, ``scaled_dot_product_attention`` (the port never
    calls it), and computes the least time the card could take;
+1b. ``flash_decode_quant`` against its plain version (``dequantize_kv``
+   then ``decode_attention``): all five formats at shape (a) in bf16;
+   fp4 in fp32; GQA 32/8 over a head-major strided cache; window 256 +
+   softcap 50 on wrapped rings; a row with no visible slot.  Same
+   tolerances.  At (a), for fp8 and fp4, it times the kernel, the plain
+   version and SDPA over the cache dequantized beforehand to bf16 (a
+   yardstick that leaves the dequantization out);
+1c. ``qmatmul`` (fp8 e4m3 container) and ``qmatmul_packed`` (fp4, fp6
+   e2m3, fp6 e3m2) against their plain versions at (m, n, k) =
+   (2048, 2048, 2048), (2048, 4096, 8192), (8, 8192, 2048) and the
+   ragged (200, 1024, 1024), bf16 out: within 2 bf16 ulps plus 1e-4 *
+   sqrt(k / 1024) (summation order).  Packed must be bit-identical to the
+   container kernel on the same values.  At 2048^3 and (8, 8192, 2048)
+   it times both kernels, their plain versions and ``torch.matmul`` in
+   bf16 over the weight dequantized beforehand (a yardstick);
 2. full-width gptneox-1b (16 layers, d_model 2048, vocab 50432, bf16,
    seeded random weights) through ``ServeEngine.run`` on the card: 8
    requests x 256-token prompts x 64 new tokens, batch 8, max_seq 1024,
@@ -24,10 +40,24 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    with 64 tokens and ``flash_decode`` must have launched once per layer
    per decode step; the kernel is then held against its plain version
    on the engine's own pool (case g);
-3. the same path on the card and on the CPU in fp32 with TF32 off, full
+2b. the same traffic through quantized serving, twice: fp4 weights
+   (packed store) with fp4 KV, and fp8 weights with fp8 KV.
+   ``flash_decode_quant`` must have launched once per layer per decode
+   step and ``flash_decode`` never; measured weight and KV bytes are
+   printed, and the kernel is held to its plain version on the engine's
+   quantized pool (case g);
+2c. the block-scaled GEMM path of the Tab VII benchmark: the user entry
+   points ``quantize_for_qmatmul`` + ``qmatmul`` (fp8) and
+   ``pack_for_qmatmul`` + ``qmatmul_packed`` (fp4) at its sizes 512^3 ..
+   8192^3, each output held to the plain version;
+3. the dense path on the card and on the CPU in fp32 with TF32 off, full
    width, 2 layers, the same seeded weights: 2 requests x 32-token
    prompts x 16 new tokens, decode_block 7.  Greedy streams must be
-   identical and the admission logits within atol 1e-3.
+   identical and the admission logits within atol 1e-3;
+3b. the quantized path the same way (fp4 packed weights + fp4 KV, then
+   fp8 + fp8): the weight store byte-identical on card and CPU,
+   ``quantize_kv`` of one tensor byte-identical for all five formats,
+   greedy streams identical, admission logits within atol 1e-3.
 
 Then it prints the ``kernels`` JSON line and, last, the ``ok`` line.
 Any failure raises: the exit code is then non-zero and no result line
@@ -36,6 +66,7 @@ is printed.  Without a CUDA device it exits with code 2 at once.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -59,6 +90,17 @@ PEAKS = {"sxm": (3.35e12, 989e12, 67e12),
 
 FD_SOURCE = "src/repro_torch/csrc/flash_decode.cu"
 FD_REPLACES = "src/repro/kernels/flash_decode.py:120"
+FDQ_SOURCE = "src/repro_torch/csrc/flash_decode_quant.cu"
+FDQ_REPLACES = "src/repro/kernels/flash_decode.py:182"
+QMM_SOURCE = "src/repro_torch/csrc/qmatmul.cu"
+QMM_REPLACES = "src/repro/kernels/qmatmul.py:76"
+QMMP_REPLACES = "src/repro/kernels/qmatmul.py:106"
+SOURCES = ("flash_decode", "flash_decode_quant", "qmatmul")
+FORMATS = ("float8_e4m3fn", "float8_e5m2", "float6_e2m3fn",
+           "float6_e3m2fn", "float4_e2m1fn")
+TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+       torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
+COLD_BYTES = 120e6          # input sets cycled per timing: > the 50 MB L2
 
 
 def log(msg: str) -> None:
@@ -101,11 +143,38 @@ def decode_case(seed, b, S, hq, hkv, d, dtype, pos, head_major=False):
             torch.from_numpy(pos).to(dev))
 
 
+def quant_case(fmt, seed, b, S, hq, hkv, d, dtype, pos, head_major=False):
+    """q, a quantized cache dict (``quantize_kv`` of fp32 K/V on the
+    card, in the engine's (b, S, hkv, ...) layout or, ``head_major``,
+    stored (b, hkv, S, ...) and handed over as strided views) and pos."""
+    from repro_torch.models.attention import quantize_kv
+    q, k, v, sp, pos = decode_case(seed, b, S, hq, hkv, d, torch.float32,
+                                   pos, head_major)
+    kv = {"slot_pos": sp}
+    for name, x in (("k", k), ("v", v)):
+        if head_major:
+            codes, scales = quantize_kv(x.transpose(1, 2), fmt)
+            codes, scales = codes.transpose(1, 2), scales.transpose(1, 2)
+        else:
+            codes, scales = quantize_kv(x, fmt)
+        kv[f"{name}_q"], kv[f"{name}_s"] = codes, scales
+    return q.to(dtype), kv, pos
+
+
 def visible(sp: torch.Tensor, pos: torch.Tensor, window=None):
     ok = (sp >= 0) & (sp <= pos[:, None])
     if window is not None:
         ok &= sp > pos[:, None] - window
     return ok
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def n_sets(set_bytes: int) -> int:
+    """Input sets to cycle so that consecutive calls find theirs cold."""
+    return max(2, math.ceil(COLD_BYTES / max(set_bytes, 1)))
 
 
 def time_ms(fn, inputs, reps: int = 25, n: int = 12) -> float:
@@ -114,7 +183,7 @@ def time_ms(fn, inputs, reps: int = 25, n: int = 12) -> float:
     is queued behind ``torch.cuda._sleep`` so the host's enqueueing
     overlaps it (the events then time the device, not the Python
     wrapper), and consecutive calls cycle through ``inputs`` (sets larger
-    together than the 50 MB L2), so each call finds its K/V cold, as a
+    together than the 50 MB L2), so each call finds its inputs cold, as a
     decode step does."""
     for args in inputs:
         fn(*args)
@@ -133,10 +202,47 @@ def time_ms(fn, inputs, reps: int = 25, n: int = 12) -> float:
     return statistics.median(times)
 
 
-def profile_block(eng, k: int):
+def bound(nbytes_moved: int, flops: int, hbm: float, peak: float):
+    """(bound ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate."""
+    t_bytes = nbytes_moved / hbm * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def check_close(case: str, got, want, rows, tol) -> float:
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{case}: kernel output is not finite")
+    err = (got[rows].float() - want[rows].float()).abs().max().item()
+    log(f"[kernel] {case}: max_abs_err {err:.3e} over "
+        f"{int(rows.sum())}/{len(rows)} rows (tol {tol})")
+    torch.testing.assert_close(got[rows].float(), want[rows].float(), **tol)
+    return err
+
+
+def check_qmm(case: str, got, want, k: int) -> float:
+    """bf16 out: within 2 bf16 ulps of the plain version plus the fp32
+    summation-order tolerance 1e-4 * sqrt(k / 1024)."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{case}: kernel output is not finite")
+    g, w = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+    atol = 1e-4 * math.sqrt(k / 1024)
+    diff = (g - w).abs()
+    bad = int((diff > 2 * ulp + atol).sum())
+    err = diff.max().item()
+    log(f"[kernel] {case}: max_abs_err {err:.3e}, {bad} outside 2 bf16 "
+        f"ulps + {atol:.1e}")
+    if bad:
+        raise AssertionError(f"{case}: {bad} elements outside tolerance")
+    return err
+
+
+def profile_block(eng, k: int, kernel_key: str):
     """One fused decode block of ``k`` steps under ``torch.profiler``:
-    (device busy ms, flash_decode device ms, kernel launches, top kernels
-    by device time) from the CUDA kernel events."""
+    (device busy ms, ``kernel_key`` device ms, kernel launches, top
+    kernels by device time) from the CUDA kernel events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -146,48 +252,20 @@ def profile_block(eng, k: int):
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    fd = sum(e.self_device_time_total for e in kern
-             if "flash_decode" in e.key) / 1e3
+    kt = sum(e.self_device_time_total for e in kern
+             if kernel_key in e.key) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    return busy, fd, sum(e.count for e in kern), [
+    return busy, kt, sum(e.count for e in kern), [
         (e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top]
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
-        return 2
+# --------------------------------------------------------------------- #
+# phases
+# --------------------------------------------------------------------- #
 
-    from repro_torch import compat
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
+def phase1_flash_decode(hbm, peak_bf16):
     from repro_torch.kernels.flash_decode import (
         flash_decode, flash_decode_plain)
-    from repro_torch.models.model import build_model
-    from repro_torch.serve import ServeEngine, quantize_params
-
-    # ---- 0: the card and the build ----------------------------------- #
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    for line in smi.splitlines():
-        log(line)
-    name = torch.cuda.get_device_name(0)
-    part, (hbm, peak_bf16, peak_f32) = card_peaks(name)
-    log(f"[card] {name}; part {part}: HBM {hbm / 1e12} TB/s, bf16 "
-        f"{peak_bf16 / 1e12} TFLOP/s, fp32 {peak_f32 / 1e12} TFLOP/s")
-    log("[card] " + compat.report().replace("\n", "; "))
-    t0 = time.perf_counter()
-    _build.build_all(["flash_decode"])
-    log(f"[build] flash_decode: {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log.get("flash_decode", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("[build]   " + line.strip())
-
-    # ---- 1: kernel vs plain on the card ------------------------------ #
-    tol = {torch.float32: dict(atol=1e-5, rtol=1e-5),
-           torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
     ragged = np.linspace(100, 1000, 8).astype(np.int32)
     wrapped = np.linspace(500, 3000, 8).astype(np.int32)
     cases = {
@@ -216,14 +294,7 @@ def main() -> int:
         want = flash_decode_plain(q, k, v, sp, pos, **flags)
         torch.cuda.synchronize()
         rows = visible(sp, pos, flags.get("window")).any(dim=1)
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{case}: kernel output is not finite")
-        err = (got[rows].float() - want[rows].float()).abs().max().item()
-        errors[case] = err
-        log(f"[kernel] {case}: max_abs_err {err:.3e} over "
-            f"{int(rows.sum())}/{len(rows)} rows (tol {tol[q.dtype]})")
-        torch.testing.assert_close(got[rows].float(), want[rows].float(),
-                                   **tol[q.dtype])
+        errors[case] = check_close(case, got, want, rows, TOL[q.dtype])
 
     # timing and bound at the serving shape (a): three input sets (3 x 67
     # MB of K/V) cycled so that no call finds its K/V in L2
@@ -243,19 +314,265 @@ def main() -> int:
             qt, kt, vt, attn_mask=mask, scale=scale), sdpa_sets)
     n_vis = int(visible(sp, pos).sum())          # visible (row, slot) pairs
     item = k.element_size()
-    nbytes = (2 * n_vis * hkv * d * item + q.numel() * item * 2
-              + sp.numel() * 4 + pos.numel() * 4)
+    moved = (2 * n_vis * hkv * d * item + q.numel() * item * 2
+             + sp.numel() * 4 + pos.numel() * 4)
     flops = 4 * n_vis * hq * d                   # QK and PV, 2 per MAC
-    t_bytes = nbytes / hbm * 1e3
-    t_ops = flops / peak_bf16 * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = bound(moved, flops, hbm, peak_bf16)
     log(f"[kernel] timing at (a): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}: {nbytes} B, {flops} flop; {n_vis} visible slots)")
+        f"({bound_by}: {moved} B, {flops} flop; {n_vis} visible slots)")
+    return {"name": "flash_decode", "route": "cuda", "source": FD_SOURCE,
+            "replaces": FD_REPLACES, "launches": None,
+            "max_abs_err": errors["a_serving_bf16"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
-    # ---- 2: full-width engine on the card ---------------------------- #
-    cfg = get_config("gptneox-1b")
+
+def phase1b_flash_decode_quant(hbm, peak_bf16):
+    from repro_torch.kernels.flash_decode_quant import (
+        flash_decode_quant, flash_decode_quant_plain)
+    from repro_torch.models.attention import cache_kv
+    ragged = np.linspace(100, 1000, 8).astype(np.int32)
+    wrapped = np.linspace(500, 3000, 8).astype(np.int32)
+    shape_a = dict(b=8, S=1024, hq=16, hkv=16, d=128, pos=ragged)
+    cases = {f"a_{fmt}_bf16": (fmt, dict(shape_a, seed=21,
+                                         dtype=torch.bfloat16), {})
+             for fmt in FORMATS}
+    cases.update({
+        "b_float4_e2m1fn_fp32": ("float4_e2m1fn", dict(
+            shape_a, seed=22, dtype=torch.float32), {}),
+        "c_gqa_32_8_strided_fp4": ("float4_e2m1fn", dict(
+            shape_a, seed=23, hq=32, hkv=8, dtype=torch.bfloat16,
+            head_major=True), {}),
+        "d_window_softcap_fp8": ("float8_e4m3fn", dict(
+            shape_a, seed=24, dtype=torch.bfloat16, pos=wrapped),
+            dict(window=256, softcap=50.0)),
+        "f_empty_row_fp6": ("float6_e3m2fn", dict(
+            shape_a, seed=25, dtype=torch.bfloat16), {}),
+    })
+    errors = {}
+    for case, (fmt, spec, flags) in cases.items():
+        q, kv, pos = quant_case(fmt, **spec)
+        if case.startswith("f_empty_row"):
+            kv["slot_pos"][3] = -1
+        got = flash_decode_quant(q, kv, pos, fmt=fmt, **flags)
+        torch.cuda.synchronize()
+        want = flash_decode_quant_plain(q, kv, pos, fmt=fmt, **flags)
+        torch.cuda.synchronize()
+        rows = visible(kv["slot_pos"], pos, flags.get("window")).any(dim=1)
+        errors[case] = check_close(case, got, want, rows, TOL[q.dtype])
+
+    entries = []
+    for fmt in ("float8_e4m3fn", "float4_e2m1fn"):
+        q, kv, pos = quant_case(fmt, **dict(shape_a, seed=30,
+                                            dtype=torch.bfloat16))
+        per_set = nbytes(kv["k_q"], kv["k_s"], kv["v_q"], kv["v_s"])
+        sets = [(q, kv, pos)] + [
+            quant_case(fmt, **dict(shape_a, seed=31 + i,
+                                   dtype=torch.bfloat16))
+            for i in range(n_sets(per_set) - 1)]
+
+        def kern(q, kv, pos, fmt=fmt):
+            return flash_decode_quant(q, kv, pos, fmt=fmt)
+
+        def plain(q, kv, pos, fmt=fmt):
+            return flash_decode_quant_plain(q, kv, pos, fmt=fmt)
+
+        ms = time_ms(kern, sets)
+        plain_ms = time_ms(plain, sets)
+        d = q.shape[-1]
+        dense = []
+        for qs, kvs, ps in sets:
+            kd, vd = cache_kv(kvs, fmt, d, out_dtype=torch.bfloat16)
+            dense.append((qs.transpose(1, 2), kd.transpose(1, 2),
+                          vd.transpose(1, 2),
+                          visible(kvs["slot_pos"], ps)[:, None, None]))
+        dense = dense[:n_sets(nbytes(*dense[0][1:3]))]
+        library_ms = time_ms(
+            lambda qt, kt, vt, mask: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(d)),
+            dense)
+        hq = q.shape[2]
+        hkv, stored_d = kv["k_q"].shape[2:]
+        n_blk = kv["k_s"].shape[3]
+        n_vis = int(visible(kv["slot_pos"], pos).sum())
+        moved = (2 * n_vis * hkv * (stored_d + n_blk) + 2 * nbytes(q)
+                 + nbytes(kv["slot_pos"], pos))
+        flops = 4 * n_vis * hq * d
+        bound_ms, bound_by = bound(moved, flops, hbm, peak_bf16)
+        log(f"[kernel] flash_decode_quant {fmt} timing at (a): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa over the "
+            f"dequantized bf16 cache {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {moved} B, {flops} flop; "
+            f"{n_vis} visible slots; {len(sets)} input sets)")
+        entries.append({
+            "name": f"flash_decode_quant[{fmt},b8_hq16_d128_S1024]",
+            "route": "cuda", "source": FDQ_SOURCE,
+            "replaces": FDQ_REPLACES, "launches": None,
+            "max_abs_err": errors[f"a_{fmt}_bf16"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "fmt": fmt})
+    return entries
+
+
+def _qmm_case(seed, m, n, k):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device="cuda")
+    return x, w
+
+
+def phase1c_qmatmul(hbm, peak_bf16):
+    from repro_torch.kernels.qmatmul import (
+        pack_for_qmatmul, qmatmul, qmatmul_packed, qmatmul_packed_plain,
+        qmatmul_plain, quantize_for_qmatmul)
+    from repro_torch.serve.quant import dequantize_blockwise
+    shapes = [(2048, 2048, 2048), (2048, 4096, 8192), (8, 8192, 2048),
+              (200, 1024, 1024)]
+    errors = {}
+    for m, n, k in shapes:
+        x, w = _qmm_case(m + n + k, m, n, k)
+        for fmt in ("float8_e4m3fn", "float4_e2m1fn", "float6_e2m3fn",
+                    "float6_e3m2fn"):
+            qw, sc = quantize_for_qmatmul(w, fmt)
+            got_c = qmatmul(x, qw, sc)
+            torch.cuda.synchronize()
+            if fmt == "float8_e4m3fn":
+                errors[(fmt, m, n, k)] = check_qmm(
+                    f"qmatmul {fmt} {m}x{n}x{k}", got_c,
+                    qmatmul_plain(x, qw, sc), k)
+                continue
+            pw, sc2 = pack_for_qmatmul(w, fmt)
+            got = qmatmul_packed(x, pw, sc2, fmt)
+            torch.cuda.synchronize()
+            errors[(fmt, m, n, k)] = check_qmm(
+                f"qmatmul_packed {fmt} {m}x{n}x{k}", got,
+                qmatmul_packed_plain(x, pw, sc2, fmt), k)
+            if not (torch.equal(sc, sc2) and torch.equal(
+                    got.view(torch.int16), got_c.view(torch.int16))):
+                raise AssertionError(f"qmatmul_packed {fmt} {m}x{n}x{k} is "
+                                     f"not bit-identical to qmatmul")
+        log(f"[kernel] {m}x{n}x{k}: packed fp4/fp6 bit-identical to the "
+            f"container kernel")
+
+    entries = []
+    for (m, n, k), name, fmt in [
+            ((2048, 2048, 2048), "qmatmul", "float8_e4m3fn"),
+            ((2048, 2048, 2048), "qmatmul_packed", "float4_e2m1fn"),
+            ((8, 8192, 2048), "qmatmul", "float8_e4m3fn"),
+            ((8, 8192, 2048), "qmatmul_packed", "float4_e2m1fn")]:
+        x, w = _qmm_case(7, m, n, k)
+        if name == "qmatmul":
+            qw, sc = quantize_for_qmatmul(w, fmt)
+            kern, plain = qmatmul, qmatmul_plain
+            base = (x, qw, sc)
+        else:
+            qw, sc = pack_for_qmatmul(w, fmt)
+
+            def kern(x, pw, sc, fmt=fmt):
+                return qmatmul_packed(x, pw, sc, fmt)
+
+            def plain(x, pw, sc, fmt=fmt):
+                return qmatmul_packed_plain(x, pw, sc, fmt)
+
+            base = (x, qw, sc)
+        per_set = nbytes(*base)
+        sets = [base] + [(x, qw.clone(), sc.clone())
+                         for _ in range(n_sets(per_set) - 1)]
+        ms = time_ms(kern, sets)
+        plain_ms = time_ms(plain, sets[:2])
+        wd = dequantize_blockwise(quantize_for_qmatmul(w, fmt)[0], sc,
+                                  torch.bfloat16)
+        lib_sets = [(x, wd)] + [(x, wd.clone()) for _ in range(
+            n_sets(nbytes(x, wd)) - 1)]
+        library_ms = time_ms(lambda a, b: torch.matmul(a, b.T), lib_sets)
+        moved = nbytes(x, qw, sc) + m * n * 2
+        flops = 2 * m * n * k
+        bound_ms, bound_by = bound(moved, flops, hbm, peak_bf16)
+        log(f"[kernel] {name} {fmt} {m}x{n}x{k}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"torch.matmul bf16 over the dequantized weight "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{moved} B, {flops} flop; {len(sets)} weight sets)")
+        entries.append({
+            "name": f"{name}[{fmt},{m}x{n}x{k}]", "route": "cuda",
+            "source": QMM_SOURCE,
+            "replaces": QMM_REPLACES if name == "qmatmul" else
+            QMMP_REPLACES, "launches": None,
+            "max_abs_err": errors[(fmt, m, n, k)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "kernel": name})
+    return entries
+
+
+def serve(eng, prompts, counter, n_layers: int, label: str) -> dict:
+    """Warm up, then serve ``prompts`` x 64 new tokens with the launch
+    count of ``counter`` (a kernel wrapper) set to 0 just before and read
+    just after.  Checks every request and the count; prints and returns
+    the end-to-end metrics."""
+    eng.submit(list(range(1, 41)), max_new_tokens=4)       # warm-up
+    eng.run()
+    eng.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=64)
+    counter.launches = 0
+    t_run = time.monotonic()
+    results = eng.run()
+    launches, steps = counter.launches, eng.decode_steps
+    torch.cuda.synchronize()
+    bad = [(r.request_id, r.status, len(r.tokens)) for r in results
+           if r.status != "ok" or len(r.tokens) != 64]
+    if len(results) != len(prompts) or bad:
+        raise AssertionError(f"{label}: {len(results)} requests, not ok: "
+                             f"{bad}")
+    vocab = eng.model.cfg.vocab_size
+    if not all(0 <= t < vocab for r in results for t in r.tokens):
+        raise AssertionError(f"{label}: token id out of range")
+    if launches != n_layers * steps or launches == 0:
+        raise AssertionError(f"{label}: {counter.__name__} launched "
+                             f"{launches} times; expected {n_layers} x "
+                             f"{steps} decode steps")
+    t_admitted = max(r.first_token_t for r in results)
+    t_done = max(r.finish_t for r in results)
+    decode_s = t_done - t_admitted
+    out = {"launches": launches, "steps": steps,
+           "step_ms": 1e3 * decode_s / steps,
+           "tok_s": sum(len(r.tokens) - 1 for r in results) / decode_s,
+           "prefill_s": t_admitted - t_run,
+           "ttft_ms": 1e3 * statistics.mean(r.ttft for r in results),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[{label}] {len(results)} requests ok x 64 tokens; {steps} decode "
+        f"steps in {eng.dispatches} blocks; {counter.__name__} launches "
+        f"{launches}")
+    log(f"[{label}] prefill {out['prefill_s']:.3f} s (8 x 256 tokens), "
+        f"decode {out['tok_s']:.1f} tok/s, {out['step_ms']:.2f} ms per "
+        f"decode step, mean TTFT {out['ttft_ms']:.1f} ms, peak memory "
+        f"{out['peak_gib']:.2f} GiB")
+
+    # where a decode step's time goes: one more 16-step block, profiled
+    eng.reset()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=40)
+    eng.decode_loop(16)                        # admission + first block
+    busy, kt, n_kern, top = profile_block(eng, 16, counter.__name__)
+    log(f"[{label}] profiled 16-step decode block: device busy "
+        f"{busy / 16:.3f} ms per step ({n_kern / 16:.0f} kernels) against "
+        f"{out['step_ms']:.2f} ms per step unprofiled: idle share "
+        f"{1 - busy / 16 / out['step_ms']:.3f}; {counter.__name__} "
+        f"{kt / 16:.3f} ms per step ({kt / busy:.3f} of device time)")
+    for key, count, t in top:
+        log(f"[{label}]   {t:9.3f} ms  x{count:<5d} {key}")
+    return out
+
+
+def phase2_engine(cfg, prompts):
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_plain)
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine, quantize_params
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
@@ -264,60 +581,7 @@ def main() -> int:
                       decode_block=16, prefill_chunk=32, device="cuda")
     log(f"[engine] {cfg.name}: {qstats['quantized_bytes'] / 2**30:.3f} GiB "
         f"params, {eng.kv_stats['kv_bytes'] / 2**30:.3f} GiB KV pool")
-    eng.submit(list(range(1, 41)), max_new_tokens=4)       # warm-up
-    eng.run()
-    eng.reset()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size, 256).tolist()
-               for _ in range(8)]
-    for p in prompts:
-        eng.submit(p, max_new_tokens=64)
-    flash_decode.launches = 0
-    t_run = time.monotonic()
-    results = eng.run()
-    launches, steps = flash_decode.launches, eng.decode_steps
-    torch.cuda.synchronize()
-    bad = [(r.request_id, r.status, len(r.tokens)) for r in results
-           if r.status != "ok" or len(r.tokens) != 64]
-    if len(results) != 8 or bad:
-        raise AssertionError(f"engine results: {len(results)} requests, "
-                             f"not ok: {bad}")
-    if not all(0 <= t < cfg.vocab_size for r in results for t in r.tokens):
-        raise AssertionError("token id out of range")
-    if launches != cfg.n_layers * steps or launches == 0:
-        raise AssertionError(f"flash_decode launched {launches} times; "
-                             f"expected {cfg.n_layers} x {steps} decode "
-                             f"steps")
-    t_admitted = max(r.first_token_t for r in results)
-    t_done = max(r.finish_t for r in results)
-    decode_s = t_done - t_admitted
-    step_ms = 1e3 * decode_s / steps
-    decode_tok = sum(len(r.tokens) - 1 for r in results)
-    ttft = statistics.mean(r.ttft for r in results)
-    log(f"[engine] {len(results)} requests ok x 64 tokens; "
-        f"{steps} decode steps in {eng.dispatches} blocks; "
-        f"flash_decode launches {launches}")
-    log(f"[engine] prefill {t_admitted - t_run:.3f} s (8 x 256 tokens), "
-        f"decode {decode_tok / decode_s:.1f} tok/s, "
-        f"{step_ms:.2f} ms per decode step, "
-        f"mean TTFT {1e3 * ttft:.1f} ms, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
-    # where a decode step's time goes: one more 16-step block, profiled
-    eng.reset()
-    for p in prompts:
-        eng.submit(p, max_new_tokens=40)
-    eng.decode_loop(16)                        # admission + first block
-    busy, fd_ms, n_kern, top = profile_block(eng, 16)
-    log(f"[profile] 16-step decode block: device busy {busy / 16:.3f} ms "
-        f"per step ({n_kern / 16:.0f} kernels) against "
-        f"{step_ms:.2f} ms per step unprofiled: idle share "
-        f"{1 - busy / 16 / step_ms:.3f}; flash_decode {fd_ms / 16:.3f} ms "
-        f"per step ({fd_ms / busy:.3f} of device time)")
-    for key, count, t in top:
-        log(f"[profile]   {t:9.3f} ms  x{count:<5d} {key}")
+    out = serve(eng, prompts, flash_decode, cfg.n_layers, "engine")
 
     # case (g): the kernel on the engine's own pool, layer 0
     kv = eng.cache["pos0"]["kv"]
@@ -327,15 +591,170 @@ def main() -> int:
     args = (qg, kv["k"][0], kv["v"][0], kv["slot_pos"][0], eng.state["pos"])
     got = flash_decode(*args)
     torch.cuda.synchronize()
-    want = flash_decode_plain(*args)
-    err = (got.float() - want.float()).abs().max().item()
-    log(f"[kernel] g_engine_pool: max_abs_err {err:.3e}")
-    torch.testing.assert_close(got.float(), want.float(),
-                               **tol[torch.bfloat16])
-    del eng, params, kv, args
-    torch.cuda.empty_cache()
+    check_close("g_engine_pool", got, flash_decode_plain(*args),
+                torch.ones(8, dtype=torch.bool, device="cuda"),
+                TOL[torch.bfloat16])
+    return out
 
-    # ---- 3: the same path on the card and on the CPU, fp32 ----------- #
+
+def phase2b_quant_engine(cfg, prompts, weight_format, kv_format):
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode_quant import (
+        flash_decode_quant, flash_decode_quant_plain)
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+    label = f"engine {weight_format} weights, {kv_format} KV"
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, params, batch=8, max_seq=1024,
+                      decode_block=16, prefill_chunk=32, device="cuda",
+                      weight_format=weight_format, packed=True,
+                      kv_format=kv_format)
+    torch.cuda.synchronize()
+    del params
+    ws, ks = eng.weight_stats, eng.kv_stats
+    log(f"[{label}] weight store built in {time.perf_counter() - t0:.2f} "
+        f"s: weight_stats {json.dumps(ws)}")
+    log(f"[{label}] kv_stats {json.dumps(ks)}")
+    flash_decode.launches = 0
+    out = serve(eng, prompts, flash_decode_quant, cfg.n_layers, label)
+    if flash_decode.launches:
+        raise AssertionError(f"{label}: the dense flash_decode launched "
+                             f"{flash_decode.launches} times")
+    out.update(weight_bytes=ws["weight_bytes"],
+               weight_quantized_bytes=ws["quantized_bytes"],
+               kv_bytes=ks["kv_bytes"],
+               kv_bytes_per_elem=ks["bytes_per_elem"])
+
+    # case (g): the kernel on the engine's own quantized pool, layer 0
+    kv = {n: t[0] for n, t in eng.cache["pos0"]["kv"].items()}
+    qg = torch.randn((8, 1, cfg.n_heads, cfg.head_dim), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(7)
+                     ).to(torch.bfloat16)
+    got = flash_decode_quant(qg, kv, eng.state["pos"], fmt=kv_format)
+    torch.cuda.synchronize()
+    check_close(f"g_engine_pool {kv_format}", got,
+                flash_decode_quant_plain(qg, kv, eng.state["pos"],
+                                         fmt=kv_format),
+                torch.ones(8, dtype=torch.bool, device="cuda"),
+                TOL[torch.bfloat16])
+    del eng, kv
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase2c_gemm_path():
+    """The Tab VII GEMM path through the user's entry points, counts set
+    to 0 just before and read just after; every output held to the plain
+    version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.qmatmul import (
+        qmatmul_packed_plain, qmatmul_plain)
+    sizes = [(512, 512, 512), (1024, 1024, 1024), (2048, 2048, 2048),
+             (2048, 2048, 4096), (2048, 4096, 8192), (4096, 4096, 4096),
+             (8192, 8192, 8192)]
+    inputs = []
+    for m, n, k in sizes:
+        x, w = _qmm_case(m * 3 + n + k, m, n, k)
+        inputs.append((x, ops.quantize_for_qmatmul(w, "float8_e4m3fn"),
+                       ops.pack_for_qmatmul(w, "float4_e2m1fn")))
+        del w
+    ops.qmatmul.launches = ops.qmatmul_packed.launches = 0
+    outs = [(ops.qmatmul(x, *qc), ops.qmatmul_packed(x, *pk,
+                                                     "float4_e2m1fn"))
+            for x, qc, pk in inputs]
+    counts = {"qmatmul": ops.qmatmul.launches,
+              "qmatmul_packed": ops.qmatmul_packed.launches}
+    torch.cuda.synchronize()
+    if counts != {"qmatmul": len(sizes), "qmatmul_packed": len(sizes)}:
+        raise AssertionError(f"GEMM path launches {counts}, expected "
+                             f"{len(sizes)} each")
+    for (m, n, k), (x, qc, pk), (oc, op) in zip(sizes, inputs, outs):
+        if oc.shape != (m, n) or op.shape != (m, n):
+            raise AssertionError(f"GEMM path {m}x{n}x{k}: shapes "
+                                 f"{tuple(oc.shape)}, {tuple(op.shape)}")
+        check_qmm(f"gemm path qmatmul fp8 {m}x{n}x{k}", oc,
+                  qmatmul_plain(x, *qc), k)
+        check_qmm(f"gemm path qmatmul_packed fp4 {m}x{n}x{k}", op,
+                  qmatmul_packed_plain(x, *pk, "float4_e2m1fn"), k)
+    log(f"[gemm path] {len(sizes)} sizes {sizes[0]}..{sizes[-1]}: launches "
+        f"{counts}")
+    return counts
+
+
+class _Recording:
+    """A model whose decode steps keep their logits (for diagnosis)."""
+
+    def __init__(self, model, seen):
+        self._model, self._seen = model, seen
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def decode_step(self, *args, **kwargs):
+        out = self._model.decode_step(*args, **kwargs)
+        self._seen.append(out.float().cpu())
+        return out
+
+
+def _serve_both(model3, params3, prompts3, **kw):
+    """Serve ``prompts3`` on the card and on the CPU.  Returns, by
+    device, the streams, the admission logits, the decode logits of every
+    step and the weight store."""
+    from repro_torch.serve import ServeEngine
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        e = ServeEngine(model3, params3, batch=2, max_seq=64,
+                        decode_block=7, prefill_chunk=32, device=dev, **kw)
+        seen, steps = [], []
+        prefill = e._prefill_into_slot
+
+        def recording(slot, req, prefill=prefill, seen=seen):
+            out = prefill(slot, req)
+            seen.append(out.float().cpu())
+            return out
+
+        e._prefill_into_slot = recording
+        e.model = _Recording(e.model, steps)
+        for p in prompts3:
+            e.submit(p, max_new_tokens=16)
+        runs[dev] = ([(r.status, r.tokens) for r in e.run()], seen, steps,
+                     e.weight_store)
+        del e
+    return runs
+
+
+def _check_parity(label: str, runs) -> None:
+    """Greedy streams identical and admission logits within 1e-3.  On a
+    differing stream, report the first differing index and the CPU's
+    top-2 logit gap there (the requests decode in lockstep, slot = request
+    index: token 0 comes from the admission logits, token i from decode
+    step i - 1)."""
+    (streams_c, adm_c, _, _), (streams_h, adm_h, steps_h, _) = (
+        runs["cuda"], runs["cpu"])
+    if streams_c != streams_h:
+        for r, ((_, a), (_, c)) in enumerate(zip(streams_c, streams_h)):
+            i = next((i for i, (x, y) in enumerate(zip(a, c)) if x != y),
+                     None)
+            if i is not None:
+                lg = adm_h[r][0] if i == 0 else steps_h[i - 1][r]
+                top = lg.topk(2).values
+                log(f"[{label}] request {r}: first differing token index "
+                    f"{i} (card {a[i]}, CPU {c[i]}); CPU top-2 logit gap "
+                    f"there {float(top[0] - top[1]):.3e}")
+        raise AssertionError(f"{label}: card vs CPU greedy streams differ")
+    for a, c in zip(adm_c, adm_h):
+        torch.testing.assert_close(a, c, atol=1e-3, rtol=0.0)
+    lerr = max((a - c).abs().max().item() for a, c in zip(adm_c, adm_h))
+    log(f"[{label}] card and CPU streams identical "
+        f"({[len(t) for _, t in streams_c]} tokens), admission logits "
+        f"max_abs_err {lerr:.3e}")
+
+
+def phase3_parity(cfg):
+    from repro_torch.models.model import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg3 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
@@ -345,41 +764,106 @@ def main() -> int:
     rng = np.random.default_rng(2)
     prompts3 = [rng.integers(0, cfg3.vocab_size, 32).tolist()
                 for _ in range(2)]
-    streams, logits = {}, {}
-    for dev in ("cuda", "cpu"):
-        e = ServeEngine(model3, params3, batch=2, max_seq=64,
-                        decode_block=7, prefill_chunk=32, device=dev)
-        seen = logits[dev] = []
-        prefill = e._prefill_into_slot
+    _check_parity("parity fp32 2-layer full width",
+                  _serve_both(model3, params3, prompts3))
+    return model3, params3, prompts3
 
-        def recording(slot, req, prefill=prefill, seen=seen):
-            out = prefill(slot, req)
-            seen.append(out.float().cpu())
-            return out
 
-        e._prefill_into_slot = recording
-        for p in prompts3:
-            e.submit(p, max_new_tokens=16)
-        streams[dev] = [(r.status, r.tokens) for r in e.run()]
-        del e
-    if streams["cuda"] != streams["cpu"]:
-        raise AssertionError(f"card vs CPU greedy streams differ: "
-                             f"{streams}")
-    for a, c in zip(logits["cuda"], logits["cpu"]):
-        torch.testing.assert_close(a, c, atol=1e-3, rtol=0.0)
-    lerr = max((a - c).abs().max().item()
-               for a, c in zip(logits["cuda"], logits["cpu"]))
-    log(f"[parity] fp32 2-layer full width: card and CPU streams identical "
-        f"({[len(t) for _, t in streams['cuda']]} tokens), admission "
-        f"logits max_abs_err {lerr:.3e}")
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    t = t.cpu()
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+def phase3b_quant_parity(model3, params3, prompts3):
+    from repro_torch.bridge import flatten
+    from repro_torch.models.attention import quantize_kv
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((4, 64, 16, 128), generator=g) * 3.0
+    for fmt in FORMATS:
+        for a, c in zip(quantize_kv(x.cuda(), fmt), quantize_kv(x, fmt)):
+            if not torch.equal(_raw(a), _raw(c)):
+                raise AssertionError(f"quantize_kv {fmt}: card and CPU "
+                                     f"bytes differ")
+    log(f"[parity] quantize_kv bytes identical on card and CPU for "
+        f"{', '.join(FORMATS)}")
+    for fmt in ("float4_e2m1fn", "float8_e4m3fn"):
+        label = f"parity fp32 2-layer full width, {fmt} weights and KV"
+        runs = _serve_both(model3, params3, prompts3, weight_format=fmt,
+                           packed=True, kv_format=fmt)
+        card, host = (flatten(runs[d][3]) for d in ("cuda", "cpu"))
+        tensors = [k for k, v in card.items() if isinstance(v, torch.Tensor)]
+        if card.keys() != host.keys() or any(
+                card[k] != host[k] for k in card if k not in tensors):
+            raise AssertionError(f"{label}: weight store layouts differ")
+        for k in tensors:
+            if not torch.equal(_raw(card[k]), _raw(host[k])):
+                raise AssertionError(f"{label}: weight store {k} differs "
+                                     f"between card and CPU")
+        log(f"[{label}] weight store byte-identical on card and CPU "
+            f"({len(tensors)} tensors)")
+        _check_parity(label, runs)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+
+    from repro_torch import compat
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    # ---- 0: the card and the build ----------------------------------- #
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    for line in smi.splitlines():
+        log(line)
+    name = torch.cuda.get_device_name(0)
+    part, (hbm, peak_bf16, peak_f32) = card_peaks(name)
+    log(f"[card] {name}; part {part}: HBM {hbm / 1e12} TB/s, bf16 "
+        f"{peak_bf16 / 1e12} TFLOP/s, fp32 {peak_f32 / 1e12} TFLOP/s")
+    log("[card] " + compat.report().replace("\n", "; "))
+    t0 = time.perf_counter()
+    _build.build_all(SOURCES)
+    log(f"[build] {', '.join(SOURCES)}: {time.perf_counter() - t0:.2f} s")
+    for src in SOURCES:
+        lines = collections.Counter(
+            line.split(":", 1)[-1].strip()
+            for line in _build.build_log.get(src, "").splitlines()
+            if "registers" in line or "spill" in line)
+        for line, count in sorted(lines.items()):
+            log(f"[build]   {src}: {count} x {line}")
+
+    # ---- 1: kernels vs plain on the card ----------------------------- #
+    fd_entry = phase1_flash_decode(hbm, peak_bf16)
+    fdq_entries = phase1b_flash_decode_quant(hbm, peak_bf16)
+    qmm_entries = phase1c_qmatmul(hbm, peak_bf16)
+
+    # ---- 2: full-width serving, then the GEMM path ------------------- #
+    cfg = get_config("gptneox-1b")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, 256).tolist()
+               for _ in range(8)]
+    dense = phase2_engine(cfg, prompts)
+    fd_entry["launches"] = dense["launches"]
+    torch.cuda.empty_cache()
+    quant = {fmt: phase2b_quant_engine(cfg, prompts, fmt, fmt)
+             for fmt in ("float4_e2m1fn", "float8_e4m3fn")}
+    for e in fdq_entries:
+        e["launches"] = quant[e.pop("fmt")]["launches"]
+    counts = phase2c_gemm_path()
+    for e in qmm_entries:
+        e["launches"] = counts[e.pop("kernel")]
+    torch.cuda.empty_cache()
+
+    # ---- 3: card vs CPU, fp32 ------------------------------------------ #
+    model3, params3, prompts3 = phase3_parity(cfg)
+    phase3b_quant_parity(model3, params3, prompts3)
 
     # ---- result lines -------------------------------------------------- #
-    print(json.dumps({"kernels": [{
-        "name": "flash_decode", "route": "cuda", "source": FD_SOURCE,
-        "replaces": FD_REPLACES, "launches": launches,
-        "max_abs_err": errors["a_serving_bf16"], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}]}))
+    print(json.dumps({"kernels": [fd_entry, *fdq_entries, *qmm_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,84 @@
+// lowbits.cuh — the low-precision codec on the device, shared by
+// flash_decode_quant.cu and qmatmul.cu (the CUDA side of
+// repro_torch/lowbits.py).
+//
+// Formats (the F template argument): 0 fp8 e4m3fn, 1 fp8 e5m2 (one byte a
+// value), 2 fp6 e2m3, 3 fp6 e3m2 (four values in a little-endian 24-bit
+// word of 3 bytes), 4 fp4 e2m1 (two values a byte, low nibble first).
+// The unit of work is a quad: 4 consecutive values, whole bytes in every
+// format (4, 3 or 2 bytes).  Every decode is exact.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace lowbits {
+
+template <int F> struct Fmt;
+template <> struct Fmt<0> { static constexpr int bits = 8, ebits = 4, mbits = 3, bias = 7; };
+template <> struct Fmt<1> { static constexpr int bits = 8, ebits = 5, mbits = 2, bias = 15; };
+template <> struct Fmt<2> { static constexpr int bits = 6, ebits = 2, mbits = 3, bias = 1; };
+template <> struct Fmt<3> { static constexpr int bits = 6, ebits = 3, mbits = 2, bias = 3; };
+template <> struct Fmt<4> { static constexpr int bits = 4, ebits = 2, mbits = 1, bias = 1; };
+
+// one code -> its value: a normal code's float32 bit pattern is assembled
+// from its fields, a subnormal one is m * 2^(1 - bias - mbits) (a
+// multiply by a power of two, then the sign bit, so -0 stays -0); fp8's
+// NaN / inf codes decode as such
+template <int F>
+__device__ __forceinline__ float decode(uint32_t c) {
+  using T = Fmt<F>;
+  const uint32_t m = c & ((1u << T::mbits) - 1);
+  const uint32_t e = (c >> T::mbits) & ((1u << T::ebits) - 1);
+  const uint32_t sign = ((c >> (T::mbits + T::ebits)) & 1u) << 31;
+  if constexpr (F == 0) {
+    if (e == 15 && m == 7) return __uint_as_float(sign | 0x7fc00000u);
+  }
+  if constexpr (F == 1) {
+    if (e == 31) return __uint_as_float(sign | (m ? 0x7fc00000u : 0x7f800000u));
+  }
+  if (e == 0) {
+    constexpr uint32_t kSubScale = (127 + 1 - T::bias - T::mbits) << 23;
+    const float mag = static_cast<float>(m) * __uint_as_float(kSubScale);
+    return __uint_as_float(__float_as_uint(mag) | sign);
+  }
+  const uint32_t biased = static_cast<uint32_t>(
+      static_cast<int>(e) - T::bias + 127);
+  return __uint_as_float(sign | (biased << 23) | (m << (23 - T::mbits)));
+}
+
+// e8m0 scale byte -> 2^(code - 127); code 0 is the subnormal 2^-127
+// (ldexpf keeps it: the build uses no flush-to-zero)
+__device__ __forceinline__ float e8m0(uint32_t code) {
+  return ldexpf(1.0f, static_cast<int>(code) - 127);
+}
+
+// the bytes of quad `qd` of a code row, little-endian in one word.  fp8
+// and fp4 quads are one aligned 4- or 2-byte load (the callers require
+// the row and its quads to be aligned to the quad's size); fp6 quads are
+// three byte loads.
+template <int F>
+__device__ __forceinline__ uint32_t load_quad(const uint8_t* row, int qd) {
+  constexpr int kBytes = Fmt<F>::bits / 2;       // 4 values a quad
+  const uint8_t* p = row + static_cast<long long>(qd) * kBytes;
+  if constexpr (kBytes == 4) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (kBytes == 2) {
+    return *reinterpret_cast<const uint16_t*>(p);
+  } else {
+    return static_cast<uint32_t>(p[0]) |
+           (static_cast<uint32_t>(p[1]) << 8) |
+           (static_cast<uint32_t>(p[2]) << 16);
+  }
+}
+
+// value i (0..3) of a quad word
+template <int F>
+__device__ __forceinline__ float quad_value(uint32_t w, int i) {
+  constexpr int kBits = Fmt<F>::bits;
+  return decode<F>((w >> (kBits * i)) & ((1u << kBits) - 1));
+}
+
+}  // namespace lowbits

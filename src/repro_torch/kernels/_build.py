@@ -7,7 +7,8 @@ No PyTorch header is included: a build takes seconds, not minutes.
 
 Builds happen at first use, never at import, so the package imports on
 a host with no CUDA compiler.  A library's file name carries a hash of
-its source and flags; an edited source builds anew.  :func:`build_all`
+its source, the shared headers (``csrc/*.cuh``) and the flags; an edited
+source or header builds anew.  :func:`build_all`
 starts one ``nvcc`` per source, all at once.
 """
 
@@ -35,8 +36,11 @@ build_log: Dict[str, str] = {}
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
+    """The library's path, named by a hash of the source, the headers
+    under ``csrc/`` it may include, and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha1(b"".join(parts)
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,12 +1,26 @@
 """Model-layout entry points of the port's kernels (counterpart of
 ``repro.kernels.ops``).
 
-The reference wrappers transpose the model's (b, S, hkv, d) cache into
-the kernel's (b, hkv, S, d) blocks.  The CUDA kernel reads the model
-layout through its strides, so :func:`flash_decode` is the kernel
-wrapper itself: q (b, 1, hq, d), cache (b, S, hkv, d), slot_pos (b, S),
-pos (b,) -> (b, 1, hq, d).  The launch count is
-``flash_decode.launches``.
+The reference wrappers transpose the model's (b, S, hkv, ...) caches
+into the kernels' (b, hkv, S, ...) blocks and pad ``m`` to the GEMM's
+tile.  The CUDA kernels read the model layout through its strides and
+mask ragged edges themselves, so each entry point here is its kernel's
+wrapper:
+
+* :func:`flash_decode`: q (b, 1, hq, d), dense cache (b, S, hkv, d),
+  slot_pos (b, S), pos (b,) -> (b, 1, hq, d);
+* :func:`flash_decode_quant`: the same over a quantized cache dict
+  (``init_kv_cache(kv_format=fmt)``);
+* :func:`qmatmul` / :func:`qmatmul_packed`: x (m, k) @ dequant(weights
+  (n, k) quantized along k, scales (n, k/32)).T, with
+  :func:`quantize_for_qmatmul` / :func:`pack_for_qmatmul` to make the
+  weights.
+
+Launch counts are ``<wrapper>.launches``.
 """
 
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: F401
+from repro_torch.kernels.flash_decode_quant import (  # noqa: F401
+    flash_decode_quant)
+from repro_torch.kernels.qmatmul import (  # noqa: F401
+    pack_for_qmatmul, qmatmul, qmatmul_packed, quantize_for_qmatmul)

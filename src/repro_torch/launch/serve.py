@@ -7,6 +7,9 @@ batching, on the card by default.
 Weights come from the port's own seeded init (``torch.Generator`` seed
 0); prompts from ``numpy.random.default_rng(1)``.  ``--device cpu`` runs
 the plain versions of the kernels on the host (use ``--reduced`` there).
+``--precision`` casts the weights (float32, bfloat16) or quantizes and
+dequantizes them blockwise (the fp8 / fp6 / fp4 formats), as the
+reference's launcher does.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="prompt tokens per pooled-prefill call")
     ap.add_argument("--precision", default="bfloat16",
-                    choices=["float32", "bfloat16"])
+                    help="float32|bfloat16|float8_e4m3fn|float8_e5m2|"
+                         "float6_e2m3fn|float6_e3m2fn|float4_e2m1fn")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)

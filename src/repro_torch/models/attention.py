@@ -1,10 +1,14 @@
 """Attention: projections, grouped-query softmax attention against a ring
 KV cache, and the cache write paths (counterpart of
-``repro.models.attention``, dense cache only).
+``repro.models.attention``).
 
 The cache layout is the reference's: ``k``/``v`` (b, S, hkv, d) at the
 cache dtype plus ``slot_pos`` (b, S) int32, the absolute position each
-slot holds (-1 = empty).  Visibility is computed from positions
+slot holds (-1 = empty).  A quantized cache (``kv_format``) holds
+``k_q``/``v_q`` codes (b, S, hkv, stored_d) and ``k_s``/``v_s`` 1-byte
+e8m0 block scales (b, S, hkv, d/blk) instead of ``k``/``v``; K/V are
+quantized on write (:func:`quantize_kv`, plain torch ops, as the
+reference does it in XLA).  Visibility is computed from positions
 (``0 <= slot_pos <= q_pos``, and ``> q_pos - window`` for local layers),
 so one rule covers decode, chunked prefill and ring wrap-around.
 
@@ -21,11 +25,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import compat, lowbits
 from repro_torch.models import layers
 from repro_torch.models.layers import dense_init, mm
 from repro_torch.models.slotstate import mask_rows
 
 NEG_INF = -1.0e30
+_FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 
 # --------------------------------------------------------------------- #
@@ -146,25 +152,132 @@ def cache_capacity(max_seq: int, window: Optional[int]) -> int:
     return min(max_seq, window) if window else max_seq
 
 
+def kv_scale_block(head_dim: int) -> int:
+    """Scale-block size along head_dim: 32 (the mxfp block) when it
+    divides, else the largest power-of-two divisor (reduced configs run
+    head_dim 16)."""
+    for blk in (32, 16, 8, 4, 2, 1):
+        if head_dim % blk == 0:
+            return blk
+    return 1
+
+
+def quantize_kv(x: torch.Tensor, kv_format: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., d) activations -> (stored, scale_codes): fp8 ``stored`` is
+    (..., d) in the container dtype, fp4/fp6 (..., d*bits/8) uint8
+    packed codes; ``scale_codes`` (..., d/kv_scale_block(d)) uint8
+    e8m0."""
+    spec = compat.dtype_spec(kv_format)
+    *lead, d = x.shape
+    blk = kv_scale_block(d)
+    xb = x.to(torch.float32).reshape(*lead, d // blk, blk)
+    s_codes = lowbits.e8m0_scale_code(xb.abs().amax(dim=-1),
+                                      spec.max_finite)
+    vals = (xb / lowbits.e8m0_decode(s_codes)[..., None]).reshape(*lead, d)
+    if spec.packed is not None:
+        if d % spec.packed.values_per_group:
+            raise ValueError(
+                f"head_dim {d} not a multiple of {kv_format}'s pack "
+                f"group ({spec.packed.values_per_group})")
+        stored = lowbits.pack_codes(
+            lowbits.encode_codes(vals, kv_format), kv_format)
+    else:
+        stored = vals.to(spec.container)
+    return stored, s_codes
+
+
+def dequantize_kv(stored: torch.Tensor, scale_codes: torch.Tensor,
+                  kv_format: str, head_dim: int,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv`: -> (..., head_dim) values."""
+    spec = compat.dtype_spec(kv_format)
+    if spec.packed is not None:
+        vals = lowbits.decode(lowbits.unpack_codes(stored, kv_format),
+                              kv_format)
+    else:
+        vals = stored.to(torch.float32)
+    *lead, d = vals.shape
+    blk = kv_scale_block(head_dim)
+    scales = lowbits.e8m0_decode(scale_codes)
+    out = vals.reshape(*lead, d // blk, blk) * scales[..., None]
+    return out.reshape(*lead, d).to(out_dtype)
+
+
 def init_kv_cache(batch: int, capacity: int, n_kv: int, head_dim: int,
                   dtype: torch.dtype, device, kv_format: Optional[str] = None,
                   lead=()) -> dict:
-    """Dense ring cache: ``k``/``v`` at ``dtype`` and ``slot_pos`` = -1.
-    ``lead`` prepends stacking axes (the period axis)."""
-    if kv_format is not None:
-        raise NotImplementedError(
-            f"kv_format={kv_format!r}: quantized KV caches arrive with the "
-            f"kv_format slice (flash_decode_quant)")
-    shape = (*lead, batch, capacity, n_kv, head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "slot_pos": torch.full((*lead, batch, capacity), -1,
-                                   dtype=torch.int32, device=device)}
+    """Ring cache: dense ``k``/``v`` at ``dtype``, or (``kv_format``)
+    ``k_q``/``v_q`` codes and ``k_s``/``v_s`` e8m0 scales (fp4: 0.5 +
+    1/32 B/elem); ``slot_pos`` = -1.  ``lead`` prepends stacking axes
+    (the period axis)."""
+    sp = torch.full((*lead, batch, capacity), -1, dtype=torch.int32,
+                    device=device)
+    if kv_format is None:
+        shape = (*lead, batch, capacity, n_kv, head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "slot_pos": sp}
+    spec = compat.dtype_spec(kv_format)
+    if spec.packed is not None:
+        ps = spec.packed
+        stored_d = head_dim // ps.values_per_group * ps.bytes_per_group
+        stored_dtype = torch.uint8
+    else:
+        stored_d, stored_dtype = head_dim, spec.container
+    n_blk = head_dim // kv_scale_block(head_dim)
+    zq = (*lead, batch, capacity, n_kv, stored_d)
+    zs = (*lead, batch, capacity, n_kv, n_blk)
+    return {"k_q": torch.zeros(zq, dtype=stored_dtype, device=device),
+            "k_s": torch.zeros(zs, dtype=torch.uint8, device=device),
+            "v_q": torch.zeros(zq, dtype=stored_dtype, device=device),
+            "v_s": torch.zeros(zs, dtype=torch.uint8, device=device),
+            "slot_pos": sp}
+
+
+def is_quantized_cache(cache: dict) -> bool:
+    return "k_q" in cache
+
+
+def cache_kv(cache: dict, kv_format: Optional[str], head_dim: int,
+             out_dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense (k, v) of a cache, dequantized when it is stored quantized
+    (the chunked prefill's history; decode reads the codes in the
+    ``flash_decode_quant`` kernel instead)."""
+    if not is_quantized_cache(cache):
+        return cache["k"], cache["v"]
+    if kv_format is None:
+        raise ValueError("a quantized cache needs its kv_format")
+    return (dequantize_kv(cache["k_q"], cache["k_s"], kv_format, head_dim,
+                          out_dtype),
+            dequantize_kv(cache["v_q"], cache["v_s"], kv_format, head_dim,
+                          out_dtype))
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """A float8 tensor as its bytes (a view): the writes move bytes and
+    need no float8 arithmetic on either device."""
+    return t.view(torch.uint8) if t.dtype in _FLOAT8 else t
+
+
+def _payload(cache: dict, k: torch.Tensor, v: torch.Tensor,
+             kv_format: Optional[str]) -> dict:
+    """The pool leaves a write updates and their new values: quantized
+    on the way in for a quantized cache, cast to the cache dtype
+    otherwise."""
+    if is_quantized_cache(cache):
+        if kv_format is None:
+            raise ValueError("a quantized cache needs its kv_format")
+        k_q, k_s = quantize_kv(k, kv_format)
+        v_q, v_s = quantize_kv(v, kv_format)
+        return {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}
+    return {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
 
 
 def cache_write_decode(cache: dict, k: torch.Tensor, v: torch.Tensor,
                        pos: torch.Tensor,
-                       active: Optional[torch.Tensor] = None) -> dict:
+                       active: Optional[torch.Tensor] = None, *,
+                       kv_format: Optional[str] = None) -> dict:
     """Write one (b, 1, hkv, d) k/v at per-row slot ``pos % capacity``,
     in place.  Rows where ``active`` is False keep their slot contents
     and ``slot_pos`` (inactive pool rows ride along in the fused loop)."""
@@ -173,15 +286,15 @@ def cache_write_decode(cache: dict, k: torch.Tensor, v: torch.Tensor,
     rows = torch.arange(b, device=sp.device)
     slot = (pos % cap).long()
     sp[rows, slot] = mask_rows(active, pos.to(torch.int32), sp[rows, slot])
-    for name, new in (("k", k[:, 0]), ("v", v[:, 0])):
-        pool = cache[name]
-        pool[rows, slot] = mask_rows(active, new.to(pool.dtype),
-                                     pool[rows, slot])
+    for name, new in _payload(cache, k[:, 0], v[:, 0], kv_format).items():
+        pool = _raw(cache[name])
+        pool[rows, slot] = mask_rows(active, _raw(new), pool[rows, slot])
     return cache
 
 
 def cache_write_chunk(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                      positions: torch.Tensor, valid: torch.Tensor) -> dict:
+                      positions: torch.Tensor, valid: torch.Tensor, *,
+                      kv_format: Optional[str] = None) -> dict:
     """Bulk-write a prompt chunk (b, s, hkv, d) at absolute ``positions``
     (s,) into the (ring) cache, in place.  ``valid`` (s,) masks the
     padded tail (masked slots keep their contents and slot_pos).
@@ -192,8 +305,7 @@ def cache_write_chunk(cache: dict, k: torch.Tensor, v: torch.Tensor,
     vmask = valid.expand(b, s)
     sp[:, slots] = mask_rows(vmask, positions.to(torch.int32).expand(b, s),
                              sp[:, slots])
-    for name, new in (("k", k), ("v", v)):
-        pool = cache[name]
-        pool[:, slots] = mask_rows(vmask, new.to(pool.dtype),
-                                   pool[:, slots])
+    for name, new in _payload(cache, k, v, kv_format).items():
+        pool = _raw(cache[name])
+        pool[:, slots] = mask_rows(vmask, _raw(new), pool[:, slots])
     return cache

@@ -7,10 +7,14 @@ loop walks the layers, and each layer reads its slice ``leaf[l]`` of the
 period-stacked parameters and cache (views, no copies).  The cache is
 updated in place (see ``repro_torch.models.attention``).
 
-The decode step's attention goes through the hand-written CUDA kernel
-(``kernels.ops.flash_decode``) where the reference calls the XLA
-``decode_attention``; chunked prefill keeps plain ``cache_attention``,
-which has no kernel in the reference either.
+The decode step's attention goes through a hand-written CUDA kernel
+where the reference calls the XLA ``decode_attention``:
+``kernels.flash_decode`` over a dense cache, and
+``kernels.flash_decode_quant`` over a quantized one (``kv_format``),
+which reads the packed codes and e8m0 scales and expands them on the way
+in, where the reference dequantizes the whole cache each step
+(``cache_kv``).  Chunked prefill keeps plain ``cache_attention`` over the
+dequantized history, which has no kernel in the reference either.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import torch
 
 from repro_torch.compat import resolve_dtype
 from repro_torch.configs.base import ArchConfig, BlockSpec
-from repro_torch.kernels import ops
+from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode_quant import flash_decode_quant
 from repro_torch.models import attention as attn
 from repro_torch.models import slotstate
 from repro_torch.models.layers import (
@@ -94,7 +99,8 @@ def unembed_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device) -> dict:
     """Pooled ring cache: ``pos{i}/kv/{k,v}`` (n_periods, batch, cap,
-    hkv, d) at the cache dtype and ``slot_pos`` (n_periods, batch, cap)
+    hkv, d) at the cache dtype, or the quantized leaves of
+    ``cfg.kv_format_for(i)``, and ``slot_pos`` (n_periods, batch, cap)
     = -1.  Capacities honour sliding windows."""
     kv_dtype = resolve_dtype(cfg.cache_dtype or cfg.compute_dtype)
     cache = {}
@@ -108,9 +114,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device) -> dict:
 
 
 def kv_cache_stats(cache: dict, cfg: ArchConfig) -> dict:
-    """Measured KV storage of a dense cache: total payload bytes, bytes
-    per element and per cached token position across the layer stack,
-    per position-in-period (``slot_pos`` bookkeeping excluded)."""
+    """Measured KV storage: total payload bytes (codes + scales, or the
+    dense K/V), bytes per logical element and per cached token position
+    across the layer stack, per position-in-period (``slot_pos``
+    bookkeeping excluded), with the reference's keys."""
+    plain = cfg.cache_dtype or cfg.compute_dtype
     kv_bytes, elems, per_token = 0, 0, 0.0
     per_layer = {}
     for name, entry in cache.items():
@@ -122,9 +130,10 @@ def kv_cache_stats(cache: dict, cfg: ArchConfig) -> dict:
         kv_bytes += payload
         elems += part_elems
         per_token += payload / (b * cap)
-        per_layer[name] = {"format": cfg.cache_dtype or cfg.compute_dtype,
+        per_layer[name] = {"format": cfg.kv_format_for(int(name[3:]))
+                           or plain,
                            "bytes_per_elem": payload / part_elems}
-    return {"kv_format": cfg.cache_dtype or cfg.compute_dtype,
+    return {"kv_format": cfg.kv_format or plain,
             "kv_bytes": int(kv_bytes), "cross_kv_bytes": 0,
             "bytes_per_elem": kv_bytes / elems if elems else 0.0,
             "bytes_per_token": per_token, "per_layer": per_layer}
@@ -177,8 +186,15 @@ def lm_decode_step(params: dict, cache: dict, token: torch.Tensor,
             k, v = attn.project_kv(p["attn"], h)
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-            attn.cache_write_decode(kv, k, v, pos, active=active)
-            o = ops.flash_decode(q, kv["k"], kv["v"], kv["slot_pos"], pos,
+            kv_fmt = cfg.kv_format_for(i)
+            attn.cache_write_decode(kv, k, v, pos, kv_format=kv_fmt,
+                                    active=active)
+            if attn.is_quantized_cache(kv):
+                o = flash_decode_quant(q, kv, pos, fmt=kv_fmt,
+                                       window=blk.window,
+                                       softcap=cfg.attn_logit_softcap)
+            else:
+                o = flash_decode(q, kv["k"], kv["v"], kv["slot_pos"], pos,
                                  window=blk.window,
                                  softcap=cfg.attn_logit_softcap)
             x = x + attn.project_out(p["attn"], o)
@@ -217,7 +233,9 @@ def lm_prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
             k, v = attn.project_kv(p["attn"], h)
             q = apply_rope(q, positions[None, :], cfg.rope_theta)
             k = apply_rope(k, positions[None, :], cfg.rope_theta)
-            kc, vc = kv_row["k"], kv_row["v"]
+            kv_fmt = cfg.kv_format_for(i)
+            kc, vc = attn.cache_kv(kv_row, kv_fmt, cfg.head_dim,
+                                   out_dtype=x.dtype)
             o = attn.cache_attention(
                 q, torch.cat([kc, k.to(kc.dtype)], dim=1),
                 torch.cat([vc, v.to(vc.dtype)], dim=1),
@@ -225,7 +243,8 @@ def lm_prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
                 positions[None, :], window=blk.window,
                 softcap=cfg.attn_logit_softcap)
             x = x + attn.project_out(p["attn"], o)
-            attn.cache_write_chunk(kv_row, k, v, positions, valid)
+            attn.cache_write_chunk(kv_row, k, v, positions, valid,
+                                   kv_format=kv_fmt)
             h = rms_norm(p["ln_ffn"], x, cfg.norm_eps)
             x = x + apply_mlp(p["mlp"], h, cfg.mlp_variant)
     return _final_logits(params, x[:, valid_len - 1:valid_len], cfg)

@@ -1,5 +1,5 @@
 """Batched serving engine with continuous batching (counterpart of
-``repro.serve.engine``, greedy dense slice).
+``repro.serve.engine``, greedy serving).
 
 A fixed pool of ``batch`` slots shares one ring KV cache.  Admission is
 chunked pooled prefill: a prompt streams into its slot's region in
@@ -19,10 +19,19 @@ Entry points run on the card: ``device=None`` resolves to ``cuda`` and
 raises when there is none.  Pass ``device="cpu"`` to run the plain
 versions of the kernels on the host (the CPU tests do).
 
-Not in this slice (they raise ``NotImplementedError``): quantized KV
-(``kv_format``), the packed weight store (``weight_format``), mesh
-serving, admission policies, speculation, fault injection and cancel,
-and sampled decoding (``temperature > 0``).
+Quantized serving, as in the reference: ``kv_format`` (a format name,
+or a tuple of one per position-in-period, which becomes
+``cfg.kv_formats``) stores the KV pool as packed codes and 1-byte e8m0
+scales, and the decode step reads them in the ``flash_decode_quant``
+kernel; ``weight_format`` keeps the weights in a quantized store
+(``self.weight_store``, bit-packed fp4 / fp6 when ``packed``) and serves
+from one dense ``compute_dtype`` copy of it, as the reference's engine
+does (``qmatmul`` cannot read this store: it is blocked along each
+leaf's last axis, not along k).
+
+Not in this slice (they raise ``NotImplementedError``): mesh serving,
+admission policies, speculation, fault injection and cancel, and
+sampled decoding (``temperature > 0``).
 """
 
 from __future__ import annotations
@@ -30,12 +39,13 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Any, Deque, List, Optional
+from typing import Any, Deque, Dict, List, Optional
 
 import torch
 
 from repro_torch.compat import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, build_model
+from repro_torch.serve.quant import dequantize_tree, quantize_tree
 from repro_torch.serve.sampler import check_temperature, sample_tokens
 
 # terminal request states; every submitted request ends in exactly one
@@ -100,11 +110,10 @@ class ServeEngine:
                  max_seq: int, temperature: float = 0.0,
                  decode_block: int = 16, prefill_chunk: int = 32,
                  device=None, *, kv_format: Any = None,
-                 weight_format: Optional[str] = None, mesh: Any = None,
-                 admission: Any = None, spec: Any = None):
-        for name, value in (("kv_format", kv_format),
-                            ("weight_format", weight_format),
-                            ("mesh", mesh), ("admission", admission),
+                 weight_format: Optional[str] = None, packed: bool = True,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 mesh: Any = None, admission: Any = None, spec: Any = None):
+        for name, value in (("mesh", mesh), ("admission", admission),
                             ("spec", spec)):
             if value is not None:
                 raise NotImplementedError(
@@ -112,8 +121,24 @@ class ServeEngine:
                     f"of the port")
         check_temperature(temperature)
         self.device = resolve_device(device)
+        if kv_format:
+            # the model's cache layer quantizes: every prefill and decode
+            # write stores codes + e8m0 scales instead of K/V
+            if isinstance(kv_format, (tuple, list)):
+                cfg = dataclasses.replace(model.cfg,
+                                          kv_formats=tuple(kv_format))
+            else:
+                cfg = dataclasses.replace(model.cfg, kv_format=kv_format)
+            model = build_model(cfg)
         self.model = model
-        self.params = _tree_to(params, self.device)
+        params = _tree_to(params, self.device)
+        self.weight_store: Optional[dict] = None
+        self.weight_stats: Optional[Dict] = None
+        if weight_format is not None:
+            self.weight_store, self.weight_stats = quantize_tree(
+                params, weight_format, packed=packed)
+            params = dequantize_tree(self.weight_store, compute_dtype)
+        self.params = params
         self.batch = batch
         self.max_seq = max_seq
         self.decode_block = max(int(decode_block), 1)
@@ -127,10 +152,11 @@ class ServeEngine:
         """Clear all serving state (cache, slots, queue, results); the
         parameters and the cache's tensors stay (reset in place)."""
         for entry in self.cache.values():
-            kv = entry["kv"]
-            kv["k"].zero_()
-            kv["v"].zero_()
-            kv["slot_pos"].fill_(-1)
+            for name, leaf in entry["kv"].items():
+                if name == "slot_pos":
+                    leaf.fill_(-1)
+                else:
+                    leaf.zero_()
         self.state = self._init_state()
         self.slot_req: List[Optional[_Request]] = [None] * self.batch
         self.out_tokens: List[List[int]] = [[] for _ in range(self.batch)]

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``; each test skips on a host without a CUDA device.  The
 GPU machine has no JAX, and ``tests/conftest.py`` imports it, so run
@@ -7,9 +7,14 @@ this file there without the conftest:
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider \
         -m cuda tests/test_torch_cuda.py
 
-Tolerances, by the cache dtype: fp32 atol=rtol=1e-5 (summation order);
-bf16 atol 2e-2 (the plain version rounds p to the cache's bf16 before
-PV, as the reference does; the kernel keeps p in fp32).
+Tolerances.  ``flash_decode`` / ``flash_decode_quant``, by the q (and
+dequantized cache) dtype: fp32 atol=rtol=1e-5 (summation order); bf16
+atol 2e-2 (the plain version rounds p to bf16 before PV, as the
+reference does; the kernel keeps p in fp32).  ``qmatmul`` /
+``qmatmul_packed``: fp32 output rtol 1e-5, atol 1e-4 * sqrt(k / 1024)
+(only the summation order differs); bf16 output within 2 bf16 ulps of
+the plain version plus that fp32 tolerance; packed bit-identical to the
+container kernel.
 """
 
 import numpy as np
@@ -18,6 +23,12 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels.flash_decode_quant import (
+    flash_decode_quant, flash_decode_quant_plain)
+from repro_torch.kernels.qmatmul import (
+    pack_for_qmatmul, qmatmul, qmatmul_packed, qmatmul_packed_plain,
+    qmatmul_plain, quantize_for_qmatmul)
+from repro_torch.models import attention as attn
 from repro_torch.models.model import build_model
 from repro_torch.serve import ServeEngine
 
@@ -131,3 +142,137 @@ def test_engine_card_matches_cpu(cuda):
         assert launched == (cfg.n_layers * eng.decode_steps
                             if dev == "cuda" else 0)
     assert streams["cuda"] == streams["cpu"]
+
+
+# --------------------------------------------------------------------- #
+# flash_decode_quant
+# --------------------------------------------------------------------- #
+
+FORMATS = ("float8_e4m3fn", "float8_e5m2", "float6_e2m3fn",
+           "float6_e3m2fn", "float4_e2m1fn")
+PACKED = FORMATS[2:]
+
+
+def _quant_inputs(seed, fmt, b, S, hq, hkv, d, q_dtype, pos, ring=False):
+    """q and a quantized cache written through the port's own
+    ``cache_write_chunk`` on the card."""
+    q, k, v, sp, pos = _inputs(seed, b, S, hq, hkv, d, q_dtype, F32, pos,
+                               ring=ring)
+    kv = attn.init_kv_cache(b, S, hkv, d, F32, "cuda", kv_format=fmt)
+    attn.cache_write_chunk(kv, k, v,
+                           torch.arange(S, device="cuda"),
+                           torch.ones(S, dtype=torch.bool, device="cuda"),
+                           kv_format=fmt)
+    kv["slot_pos"].copy_(sp)
+    return q, kv, pos
+
+
+def _check_quant(q, kv, pos, fmt, **flags):
+    got = flash_decode_quant(q, kv, pos, fmt=fmt, **flags)
+    torch.cuda.synchronize()
+    want = flash_decode_quant_plain(q, kv, pos, fmt=fmt, **flags)
+    sp = kv["slot_pos"]
+    ok = (sp >= 0) & (sp <= pos[:, None])
+    if flags.get("window") is not None:
+        ok &= sp > pos[:, None] - flags["window"]
+    rows = ok.any(dim=1)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[rows].float(), want[rows].float(),
+                               **TOL[q.dtype])
+    assert (got[~rows] == 0).all()
+
+
+@pytest.mark.parametrize("S", [63, 64, 1000])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_quant_formats_shapes(cuda, fmt, d, hq, hkv, S):
+    _check_quant(*_quant_inputs(S + d, fmt, 2, S, hq, hkv, d, F32,
+                                pos=[S - 1, S // 3]), fmt)
+
+
+@pytest.mark.parametrize("window,softcap", [(64, None), (None, 20.0),
+                                            (32, 10.0)])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_quant_window_softcap_on_wrapped_ring(cuda, fmt, window, softcap):
+    _check_quant(*_quant_inputs(7, fmt, 2, 96, 4, 2, 64, F32,
+                                pos=[245, 300], ring=True), fmt,
+                 window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_quant_bf16_and_rows_without_visible_slot(cuda, fmt):
+    q, kv, pos = _quant_inputs(9, fmt, 4, 128, 16, 16, 128, BF16,
+                               pos=[127, 5, 60, 90])
+    kv["slot_pos"][1] = -1
+    pos[3] = -1
+    _check_quant(q, kv, pos, fmt)
+
+
+def test_quant_strided_pool_view_and_launch_count(cuda):
+    """The engine's layer view of a period-stacked pool (a strided
+    slice); one launch counted per call, none by the plain version."""
+    fmt = "float4_e2m1fn"
+    q, kv, pos = _quant_inputs(11, fmt, 2, 80, 8, 2, 64, F32, pos=[79, 40])
+    stacked = {n: torch.stack([t, t]).transpose(0, 1).contiguous()
+               .transpose(0, 1) for n, t in kv.items()}
+    layer = {n: t[1] for n, t in stacked.items()}
+    before = flash_decode_quant.launches
+    _check_quant(q, layer, pos, fmt)
+    assert flash_decode_quant.launches == before + 1
+
+
+# --------------------------------------------------------------------- #
+# qmatmul / qmatmul_packed
+# --------------------------------------------------------------------- #
+
+def _qmm_inputs(seed, m, n, k, x_dtype=BF16):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k), np.float32))
+    w = torch.from_numpy(rng.standard_normal((k, n), np.float32) * 0.05)
+    return x.to("cuda", x_dtype), w.cuda()
+
+
+def _assert_qmm_close(got, want, k):
+    atol = 1e-4 * (k / 1024) ** 0.5
+    if got.dtype == F32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+        return
+    g, w = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+    bad = (g - w).abs() > 2 * ulp + atol
+    assert not bad.any(), (g[bad][:5], w[bad][:5])
+
+
+@pytest.mark.parametrize("out_dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 37, 128])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_qmatmul_formats_ragged_m(cuda, fmt, m, out_dtype):
+    k, n = 512, 192
+    x, w = _qmm_inputs(m, m, n, k)
+    qw, sc = quantize_for_qmatmul(w, fmt)
+    before = qmatmul.launches
+    got = qmatmul(x, qw, sc, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert qmatmul.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == out_dtype
+    _assert_qmm_close(got, qmatmul_plain(x, qw, sc, out_dtype), k)
+    if fmt in PACKED:
+        pw, sc2 = pack_for_qmatmul(w, fmt)
+        assert torch.equal(sc, sc2)
+        got_p = qmatmul_packed(x, pw, sc2, fmt, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got_p.view(torch.uint8) if out_dtype == BF16
+                           else got_p.view(torch.int32),
+                           got.view(torch.uint8) if out_dtype == BF16
+                           else got.view(torch.int32))
+        _assert_qmm_close(got_p, qmatmul_packed_plain(x, pw, sc2, fmt,
+                                                      out_dtype), k)
+
+
+def test_qmatmul_fp32_x_and_ragged_n(cuda):
+    x, w = _qmm_inputs(3, 70, 100, 256, x_dtype=F32)
+    qw, sc = quantize_for_qmatmul(w, "float8_e4m3fn")
+    _assert_qmm_close(qmatmul(x, qw, sc, out_dtype=F32),
+                      qmatmul_plain(x, qw, sc, F32), 256)

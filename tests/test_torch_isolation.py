@@ -1,7 +1,8 @@
-"""The port stands alone: no JAX and nothing of ``repro`` in its sources
-or ``chip_smoke.py``; it imports on a host with no CUDA compiler and no
+"""The port stands alone: no JAX, no ``ml_dtypes`` (the machine with the
+card does not have it) and nothing of ``repro`` in its sources or
+``chip_smoke.py``; it imports on a host with no CUDA compiler and no
 triton; its entry points default to the card and refuse to continue on
-the CPU; the kernel wrapper never falls back to the plain version."""
+the CPU; the kernel wrappers never fall back to their plain versions."""
 
 import ast
 import pathlib
@@ -15,6 +16,9 @@ from repro_torch import compat
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import flash_decode_quant as fdq
+from repro_torch.kernels import qmatmul as qm
+from repro_torch.models import attention as attn
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.model import build_model
 from repro_torch.serve import ServeEngine
@@ -22,7 +26,7 @@ from repro_torch.serve import ServeEngine
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_roots(path):
@@ -52,6 +56,7 @@ def test_package_imports_without_nvcc_or_triton(tmp_path):
         "    __import__(m.name)\n"
         "assert 'triton' not in sys.modules, 'triton imported'\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'ml_dtypes' not in sys.modules, 'ml_dtypes imported'\n"
         "assert not any(n == 'repro' or n.startswith('repro.') "
         "for n in sys.modules), 'repro imported'\n")
     env = {"PATH": str(tmp_path), "PYTHONPATH": str(ROOT / "src"),
@@ -106,11 +111,60 @@ def test_kernel_path_without_library_raises(monkeypatch):
     assert fd.flash_decode.launches == before
 
 
+def _quant_inputs(device="cpu"):
+    q, k, v, _, pos = _decode_inputs()
+    kv = attn.init_kv_cache(2, 8, 2, 16, torch.float32, "cpu",
+                            kv_format="float4_e2m1fn")
+    attn.cache_write_chunk(kv, k, v, torch.arange(8),
+                           torch.ones(8, dtype=torch.bool),
+                           kv_format="float4_e2m1fn")
+    return (q.to(device), {n: t.to(device) for n, t in kv.items()},
+            pos.to(device))
+
+
+def _qmm_inputs(device="cpu"):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(5, 64, generator=g).to(torch.bfloat16)
+    w = torch.randn(64, 32, generator=g)
+    qw, sc = qm.quantize_for_qmatmul(w, "float4_e2m1fn")
+    pw, _ = qm.pack_for_qmatmul(w, "float4_e2m1fn")
+    return [t.to(device) for t in (x, qw, pw, sc)]
+
+
+def test_new_kernel_paths_without_library_raise(monkeypatch):
+    """The same for flash_decode_quant, qmatmul and qmatmul_packed."""
+    monkeypatch.setattr(compat, "nvcc_path", lambda: None)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR / "absent")
+    before = (fdq.flash_decode_quant.launches, qm.qmatmul.launches,
+              qm.qmatmul_packed.launches)
+    q, kv, pos = _quant_inputs()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fdq._kernel(q, kv, pos, "float4_e2m1fn", None, None, 0.25)
+    x, qw, pw, sc = _qmm_inputs()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        qm._launch("float8_e4m3fn", x, qw, sc, 32, torch.bfloat16,
+                   "qmatmul")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        qm._launch("float4_e2m1fn", x, pw, sc, 32, torch.bfloat16,
+                   "qmatmul_packed")
+    assert (fdq.flash_decode_quant.launches, qm.qmatmul.launches,
+            qm.qmatmul_packed.launches) == before
+
+
 def test_wrapper_refuses_other_devices():
     """Only CPU tensors take the plain version: tensors elsewhere (here
     the meta device) raise instead of being computed some other way."""
     with pytest.raises(ValueError, match="cuda"):
         fd.flash_decode(*_decode_inputs("meta"))
+    q, kv, pos = _quant_inputs("meta")
+    with pytest.raises(ValueError, match="cuda"):
+        fdq.flash_decode_quant(q, kv, pos, fmt="float4_e2m1fn")
+    x, qw, pw, sc = _qmm_inputs("meta")
+    with pytest.raises(ValueError, match="cuda"):
+        qm.qmatmul(x, qw, sc)
+    with pytest.raises(ValueError, match="cuda"):
+        qm.qmatmul_packed(x, pw, sc, "float4_e2m1fn")
 
 
 def test_plain_version_counts_no_launch():
@@ -118,3 +172,13 @@ def test_plain_version_counts_no_launch():
     out = fd.flash_decode(*_decode_inputs())
     assert out.shape == (2, 1, 4, 16)
     assert fd.flash_decode.launches == before
+    counts = (fdq.flash_decode_quant.launches, qm.qmatmul.launches,
+              qm.qmatmul_packed.launches)
+    q, kv, pos = _quant_inputs()
+    assert fdq.flash_decode_quant(q, kv, pos, fmt="float4_e2m1fn"
+                                  ).shape == (2, 1, 4, 16)
+    x, qw, pw, sc = _qmm_inputs()
+    assert torch.equal(qm.qmatmul(x, qw, sc),
+                       qm.qmatmul_packed(x, pw, sc, "float4_e2m1fn"))
+    assert (fdq.flash_decode_quant.launches, qm.qmatmul.launches,
+            qm.qmatmul_packed.launches) == counts

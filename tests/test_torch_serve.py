@@ -121,7 +121,6 @@ def test_max_seq_finish_matches_reference(models):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"kv_format": "float8_e4m3fn"}, {"weight_format": "float4_e2m1fn"},
     {"mesh": object()}, {"admission": object()}, {"spec": object()},
     {"temperature": 0.7}])
 def test_later_slice_options_raise(models, kwargs):
