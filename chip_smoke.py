@@ -33,6 +33,23 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    container kernel on the same values.  At 2048^3 and (8, 8192, 2048)
    it times both kernels, their plain versions and ``torch.matmul`` in
    bf16 over the weight dequantized beforehand (a yardstick);
+1d. the probe kernels against their plain versions: ``chase`` exact (the
+   final index, also against the numpy oracle) over (rows, 128) buffers
+   at rows 16, 4096, 2^17 and flat (n, 1) chains at n = 2^12, 2^20,
+   2^24; ``dep_chain`` at (chain, ilp) = (10, 1), (100, 2), (57, 4),
+   (256, 8) (within (n + 1) ulps: fma against the plain version's
+   multiply and add) and every compute workload at lanes 1 and 4096
+   (int32, fp32, mixed1 and mixed2 exact: under the reference's
+   constants fma and multiply-add round alike, see
+   ``probe_dep_chain.assert_chain_close``; mixed2 only up to chain 40,
+   where no float -> int32 convert overflows; fp64 within (n + 1)
+   ulps); ``mma_probe`` in bf16 and fp32
+   (TF32) at ilp 1/2/4 and (m, k, n) = (256, 256, 128), (128, 128, 128)
+   (bf16 out: within 1 bf16 ulp + 1e-5 sqrt(k); TF32: atol 2^-8 sqrt(k),
+   eight standard deviations of the operands' TF32 rounding for N(0, 1)
+   inputs) and the fp32-out products the sweep runs (atol 1e-5 sqrt(k)).
+   At the characterize path's shapes it times each kernel, its plain
+   version and, for ``mma_probe``, ``torch.bmm`` in bf16 (a yardstick);
 2. full-width gptneox-1b (16 layers, d_model 2048, vocab 50432, bf16,
    seeded random weights) through ``ServeEngine.run`` on the card: 8
    requests x 256-token prompts x 64 new tokens, batch 8, max_seq 1024,
@@ -57,9 +74,16 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
 3b. the quantized path the same way (fp4 packed weights + fp4 KV, then
    fp8 + fp8): the weight store byte-identical on card and CPU,
    ``quantize_kv`` of one tensor byte-identical for all five formats,
-   greedy streams identical, admission logits within atol 1e-3.
+   greedy streams identical, admission logits within atol 1e-3;
+4. the probe suite ``repro_torch.launch.characterize`` on the card at the
+   reference example's sizes, with every probe kernel's launch count and
+   every plain version's call count set to 0 just before and read just
+   after: each kernel launched, no plain version called; its tables and
+   the measured figures beside the paper's GH100 column are printed, and
+   a pointer chase over 1 GiB adds the HBM plateau.
 
-Then it prints the ``kernels`` JSON line and, last, the ``ok`` line.
+Then it prints the card's name and power limit again, the ``kernels``
+JSON line and, last, the ``ok`` line.
 Any failure raises: the exit code is then non-zero and no result line
 is printed.  Without a CUDA device it exits with code 2 at once.
 """
@@ -83,11 +107,6 @@ import torch.nn.functional as F
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# Published H100 peaks by part (NVIDIA data sheets, dense): HBM bytes/s,
-# bf16 tensor-core FLOP/s, fp32 (non-tensor) FLOP/s.
-PEAKS = {"sxm": (3.35e12, 989e12, 67e12),
-         "pcie": (2.0e12, 756e12, 51e12)}
-
 FD_SOURCE = "src/repro_torch/csrc/flash_decode.cu"
 FD_REPLACES = "src/repro/kernels/flash_decode.py:120"
 FDQ_SOURCE = "src/repro_torch/csrc/flash_decode_quant.cu"
@@ -95,7 +114,15 @@ FDQ_REPLACES = "src/repro/kernels/flash_decode.py:182"
 QMM_SOURCE = "src/repro_torch/csrc/qmatmul.cu"
 QMM_REPLACES = "src/repro/kernels/qmatmul.py:76"
 QMMP_REPLACES = "src/repro/kernels/qmatmul.py:106"
-SOURCES = ("flash_decode", "flash_decode_quant", "qmatmul")
+PROBE_SOURCES = {
+    "dep_chain": ("src/repro_torch/csrc/probe_dep_chain.cu",
+                  "src/repro/kernels/probe_dep_chain.py:40"),
+    "chase": ("src/repro_torch/csrc/probe_chase.cu",
+              "src/repro/kernels/probe_chase.py:37"),
+    "mma_probe": ("src/repro_torch/csrc/probe_mma.cu",
+                  "src/repro/kernels/probe_mma.py:48")}
+SOURCES = ("flash_decode", "flash_decode_quant", "qmatmul", "probe_dep_chain",
+           "probe_chase", "probe_mma")
 FORMATS = ("float8_e4m3fn", "float8_e5m2", "float6_e2m3fn",
            "float6_e3m2fn", "float4_e2m1fn")
 TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
@@ -105,11 +132,6 @@ COLD_BYTES = 120e6          # input sets cycled per timing: > the 50 MB L2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_peaks(name: str):
-    part = "pcie" if "pcie" in name.lower() else "sxm"
-    return part, PEAKS[part]
 
 
 def ring_slot_pos(pos: int, S: int) -> np.ndarray:
@@ -506,6 +528,191 @@ def phase1c_qmatmul(hbm, peak_bf16):
     return entries
 
 
+def _probe_counters():
+    """The probe kernels' launch counters and their plain versions' call
+    counters, by kernel name."""
+    from repro_torch.kernels import probe_chase as pc
+    from repro_torch.kernels import probe_dep_chain as pdc
+    from repro_torch.kernels import probe_mma as pm
+    return {"dep_chain": (pdc.dep_chain, pdc.dep_chain_plain),
+            "chase": (pc.chase, pc.chase_plain),
+            "mma_probe": (pm.mma_probe, pm.mma_probe_plain)}
+
+
+def _check_mma(case, got, want, k, kind):
+    """``kind`` "bf16": bf16 out, within 1 bf16 ulp + 1e-5 sqrt(k);
+    "tf32": fp32 inputs rounded to TF32, atol 2^-8 sqrt(k); "fp32": bf16
+    inputs, fp32 out (summation order only), atol 1e-5 sqrt(k)."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{case}: kernel output is not finite")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if kind == "bf16":
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+        tol = ulp + 1e-5 * math.sqrt(k)
+        label = "1 bf16 ulp + 1e-5 sqrt(k)"
+    elif kind == "tf32":
+        tol = torch.full_like(w, 2.0 ** -8 * math.sqrt(k))
+        label = "2^-8 sqrt(k)"
+    else:
+        tol = torch.full_like(w, 1e-5 * math.sqrt(k))
+        label = "1e-5 sqrt(k)"
+    bad = int((diff > tol).sum())
+    err = diff.max().item()
+    log(f"[probe] {case}: max_abs_err {err:.3e}, {bad} outside {label}")
+    if bad:
+        raise AssertionError(f"{case}: {bad} elements outside tolerance")
+    return err
+
+
+def phase1d_probes(model):
+    """The probe kernels against their plain versions, then their times
+    at the characterize path's shapes."""
+    from repro_torch.core.probes.memory import _permutation_chain
+    from repro_torch.kernels import probe_chase as pc
+    from repro_torch.kernels import probe_dep_chain as pdc
+    from repro_torch.kernels import probe_mma as pm
+    hbm, peak_bf16 = model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"]
+    peak_f32 = model.vector_flops["float32"]
+    errors = {}
+
+    # chase: exact, against the plain walk and the numpy oracle
+    t0 = time.perf_counter()
+    for rows in (16, 4096, 1 << 17):
+        buf = pc.make_chase_buffer(rows, seed=rows).cuda()
+        for steps in (50, 8192):
+            got = int(pc.chase(buf, steps))
+            torch.cuda.synchronize()
+            want = int(pc.chase_plain(buf, steps))
+            oracle = pc.chase_reference(buf[:, :1].cpu().numpy(), steps)
+            if not got == want == oracle:
+                raise AssertionError(f"chase rows={rows} steps={steps}: "
+                                     f"kernel {got}, plain {want}, numpy "
+                                     f"{oracle}")
+    for n in (1 << 12, 1 << 20, 1 << 24):
+        nxt = _permutation_chain(n, 0)
+        buf = torch.from_numpy(nxt.copy()).view(n, 1).cuda()
+        got = int(pc.chase(buf, 8192))
+        torch.cuda.synchronize()
+        want = int(pc.chase_plain(buf, 8192))
+        if not got == want == pc.chase_reference(nxt[:, None], 8192):
+            raise AssertionError(f"chase flat n={n}: kernel {got}, plain "
+                                 f"{want}")
+    errors["chase"] = 0.0
+    log(f"[probe] chase: final index exact at rows 16/4096/2^17 and flat "
+        f"2^12/2^20/2^24 ({time.perf_counter() - t0:.1f} s)")
+
+    # dep_chain: the public contract, then every compute workload
+    for n, ilp in ((10, 1), (100, 2), (57, 4), (256, 8)):
+        rng = np.random.default_rng(n)
+        x = torch.from_numpy(rng.standard_normal((ilp, 8, 128),
+                                                 np.float32)).cuda()
+        got = pdc.dep_chain(x, n, ilp)
+        torch.cuda.synchronize()
+        err = pdc.assert_chain_close(
+            {"float": got}, {"float": pdc.dep_chain_plain(x, n)}, n,
+            reference_constants=False, case=f"dep_chain ({n}, {ilp})")
+        log(f"[probe] dep_chain chain {n} ilp {ilp}: max_abs_err {err:.3e}")
+    for w in ("int32", "fp32", "fp64", "mixed1", "mixed2"):
+        for lanes in (1, 4096):
+            for n in ((0, 1, 7, 40) if w == "mixed2" else (0, 1, 7, 40, 256)):
+                run = pdc.run_chain(w, n, lanes, device="cuda")
+                torch.cuda.synchronize()
+                err = pdc.assert_chain_close(
+                    run.values, pdc.chain_plain(w, n, lanes, device="cuda"),
+                    n, case=f"{w} lanes {lanes} chain {n}")
+                if (w, lanes, n) == ("fp32", 4096, 256):
+                    errors["dep_chain"] = err
+    log("[probe] dep_chain: 5 workloads x lanes 1/4096 x chains 0..256 "
+        "within tolerance (int32, fp32, mixed1 and mixed2 exact, mixed2 up "
+        "to 40; fp64 within (n + 1) ulps)")
+    run = pdc.run_chain("fp32", 256, 4096, device="cuda")
+    per_sm = sorted(collections.Counter(run.smid.tolist()).values())
+    log(f"[probe] completion-latency launch: 4096 threads in blocks of "
+        f"{pdc.MAX_BLOCK}; threads per SM {per_sm}")
+
+    # mma_probe
+    for dt in (torch.bfloat16, torch.float32):
+        for ilp in (1, 2, 4):
+            for m, k, n in ((256, 256, 128), (128, 128, 128)):
+                g = torch.Generator(device="cuda").manual_seed(m + ilp)
+                x = torch.randn((ilp, m, k), generator=g, device="cuda")
+                y = torch.randn((k, n), generator=g, device="cuda")
+                x, y = x.to(dt), y.to(dt)
+                got = pm.mma_probe(x, y, ilp=ilp)
+                torch.cuda.synchronize()
+                kind = "bf16" if dt == torch.bfloat16 else "tf32"
+                _check_mma(f"{kind} mma_probe ilp {ilp} {m}x{k}x{n}", got,
+                           pm.mma_probe_plain(x, y, dt), k, kind)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randn((16, 4, 128, 128), generator=g, device="cuda").bfloat16()
+    b = torch.randn((16, 4, 128, 128), generator=g, device="cuda").bfloat16()
+    got = pm.mma_products(a, b)
+    torch.cuda.synchronize()
+    errors["mma_probe"] = _check_mma(
+        "bf16 products batch 16 ilp 4 128^3", got,
+        pm.mma_probe_plain(a, b, torch.float32), 128, "fp32")
+
+    # timing at the characterize path's shapes
+    entries = []
+    values = {"float": torch.empty((1, 4096), device="cuda")}
+
+    def chain_kernel():
+        return pdc._launch("fp32", values, 256, False, unrolled=True)
+
+    ms = time_ms(chain_kernel, [()])
+    plain_ms = time_ms(lambda: pdc.chain_plain("fp32", 256, 4096,
+                                               device="cuda"), [()],
+                       reps=5, n=2)
+    moved = 4096 * (4 + 8 + 8 + 4)       # values, cycles, ns, smid out
+    flops = 2 * 4096 * 256
+    bound_ms, bound_by = bound(moved, flops, hbm, peak_f32)
+    log(f"[probe] dep_chain fp32 lanes 4096 chain 256: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+        f"{moved} B, {flops} flop at fp32 {peak_f32 / 1e12:g} TFLOP/s)")
+    entries.append(("dep_chain[fp32,lanes4096,chain256]", ms, plain_ms,
+                    bound_ms, bound_by, None))
+
+    n = 1 << 24
+    buf = torch.from_numpy(_permutation_chain(n, 0).copy()).view(n, 1)
+    buf = buf.cuda()
+    ms = time_ms(lambda: pc._launch(buf, 8192), [()], reps=7, n=3)
+    plain_ms = time_ms(lambda: pc.chase_plain(buf, 8192), [()], reps=3, n=1)
+    moved = 8192 * 4 + 3 * 8               # the walk's loads, out
+    bound_ms, bound_by = bound(moved, 0, hbm, peak_f32)
+    log(f"[probe] chase flat 2^24 (64 MiB) 8192 steps: kernel {ms:.4f} ms "
+        f"(warm-up sweep + walk), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}: {moved} B)")
+    entries.append(("chase[flat_2^24,steps8192]", ms, plain_ms, bound_ms,
+                    bound_by, None))
+    del buf
+
+    ms = time_ms(pm.mma_products, [(a, b)])
+    plain_ms = time_ms(lambda a, b: pm.mma_probe_plain(a, b, torch.float32),
+                       [(a, b)])
+    a3, b3 = a.view(-1, 128, 128), b.view(-1, 128, 128)
+    library_ms = time_ms(torch.bmm, [(a3, b3)])
+    moved = nbytes(a, b) + a.shape[0] * a.shape[1] * 128 * 128 * 4
+    flops = 2 * 128 ** 3 * 16 * 4
+    bound_ms, bound_by = bound(moved, flops, hbm, peak_bf16)
+    log(f"[probe] mma_probe bf16 batch 16 ilp 4 128^3: kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"torch.bmm bf16 {library_ms:.4f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by}: {moved} B, {flops} flop)")
+    entries.append(("mma_probe[bf16,batch16_ilp4_128^3]", ms, plain_ms,
+                    bound_ms, bound_by, library_ms))
+    out = []
+    for name, ms, plain_ms, bound_ms, bound_by, library_ms in entries:
+        kernel = name.split("[")[0]
+        source, replaces = PROBE_SOURCES[kernel]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": None,
+                    "max_abs_err": errors[kernel], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms})
+    return out
+
+
 def serve(eng, prompts, counter, n_layers: int, label: str) -> dict:
     """Warm up, then serve ``prompts`` x 64 new tokens with the launch
     count of ``counter`` (a kernel wrapper) set to 0 just before and read
@@ -804,6 +1011,48 @@ def phase3b_quant_parity(model3, params3, prompts3):
         _check_parity(label, runs)
 
 
+def phase4_characterize():
+    """``repro_torch.launch.characterize`` at the reference example's
+    sizes, the counters set to 0 just before and read just after; then a
+    pointer chase over 1 GiB for the HBM plateau."""
+    from repro_torch.kernels import probe_chase as pc
+    from repro_torch.launch import characterize
+    counters = _probe_counters()
+    for kern, plain in counters.values():
+        kern.launches, plain.calls = 0, 0
+    t0 = time.perf_counter()
+    out = characterize.run(log=lambda line: log(f"[characterize] {line}"
+                                                if line else "[characterize]"))
+    counts = {k: kern.launches for k, (kern, _) in counters.items()}
+    plain = {k: p.calls for k, (_, p) in counters.items()}
+    log(f"[characterize] {time.perf_counter() - t0:.1f} s; kernel launches "
+        f"{counts}; plain version calls {plain}")
+    if not all(counts.values()) or any(plain.values()):
+        raise AssertionError(f"characterize: kernel launches {counts}, "
+                             f"plain calls {plain}")
+    nums = [out["clock_hz"], out["timer_overhead_cycles"], out["fp64_factor"]]
+    nums += [getattr(r, f) for r in out["latency"]
+             for f in ("true_cycles", "completion_cycles")]
+    nums += [p.cycles_per_load for p in out["chase"]]
+    nums += [p.tflops for p in out["matmul"]]
+    nums += [r.gbps for r in out["bandwidth"]]
+    if len(out["latency"]) != 5 or len(out["chase"]) != 7 \
+            or len(out["matmul"]) != 9 or len(out["support"]) != 5 \
+            or not all(math.isfinite(v) and v > 0 for v in nums):
+        raise AssertionError(f"characterize: results missing or not "
+                             f"finite and positive: {nums}")
+    n = 1 << 28                                  # 1 GiB, 20x the L2
+    buf = torch.from_numpy(pc.chase_cycle(n, 5)).cuda()
+    runs = [pc.chase_timed(buf, 8192) for _ in range(3)]
+    cyc = statistics.median(r.cycles for r in runs) / 8192
+    ns = statistics.median(r.ns for r in runs) / 8192
+    log(f"[characterize] chase over 1 GiB (HBM): {cyc:.3f} cycles, "
+        f"{ns:.3f} ns per load (paper GH100 global: 658.7 cycles)")
+    del buf
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -811,6 +1060,7 @@ def main() -> int:
 
     from repro_torch import compat
     from repro_torch.configs import get_config
+    from repro_torch.core.device_model import detect_backend_model
     from repro_torch.kernels import _build
 
     # ---- 0: the card and the build ----------------------------------- #
@@ -821,9 +1071,14 @@ def main() -> int:
     for line in smi.splitlines():
         log(line)
     name = torch.cuda.get_device_name(0)
-    part, (hbm, peak_bf16, peak_f32) = card_peaks(name)
-    log(f"[card] {name}; part {part}: HBM {hbm / 1e12} TB/s, bf16 "
-        f"{peak_bf16 / 1e12} TFLOP/s, fp32 {peak_f32 / 1e12} TFLOP/s")
+    # one model of the part gives every phase its peaks
+    model = detect_backend_model()
+    hbm, peak_bf16 = model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"]
+    log(f"[card] {name}; detected part model {model.name}: "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, "
+        f"HBM {hbm / 1e12} TB/s, bf16 {peak_bf16 / 1e12} TFLOP/s, TF32 "
+        f"{model.peak_flops['float32'] / 1e12:g} TFLOP/s, fp32 "
+        f"{model.vector_flops['float32'] / 1e12:g} TFLOP/s")
     log("[card] " + compat.report().replace("\n", "; "))
     t0 = time.perf_counter()
     _build.build_all(SOURCES)
@@ -840,6 +1095,7 @@ def main() -> int:
     fd_entry = phase1_flash_decode(hbm, peak_bf16)
     fdq_entries = phase1b_flash_decode_quant(hbm, peak_bf16)
     qmm_entries = phase1c_qmatmul(hbm, peak_bf16)
+    probe_entries = phase1d_probes(model)
 
     # ---- 2: full-width serving, then the GEMM path ------------------- #
     cfg = get_config("gptneox-1b")
@@ -862,8 +1118,16 @@ def main() -> int:
     model3, params3, prompts3 = phase3_parity(cfg)
     phase3b_quant_parity(model3, params3, prompts3)
 
+    # ---- 4: the probe suite -------------------------------------------- #
+    counts = phase4_characterize()
+    for e in probe_entries:
+        e["launches"] = counts[e["name"].split("[")[0]]
+
     # ---- result lines -------------------------------------------------- #
-    print(json.dumps({"kernels": [fd_entry, *fdq_entries, *qmm_entries]}))
+    for line in smi.splitlines():                # again, near the end
+        log(line)
+    print(json.dumps({"kernels": [fd_entry, *fdq_entries, *qmm_entries,
+                                  *probe_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,7 +14,11 @@ wrapper:
 * :func:`qmatmul` / :func:`qmatmul_packed`: x (m, k) @ dequant(weights
   (n, k) quantized along k, scales (n, k/32)).T, with
   :func:`quantize_for_qmatmul` / :func:`pack_for_qmatmul` to make the
-  weights.
+  weights;
+* the probe kernels, with the reference's signatures: :func:`dep_chain`
+  (x (ilp, 8, 128) fp32 through ``chain_len`` serial ``x * a + b``),
+  :func:`chase` (final index of a walk over :func:`make_chase_buffer`)
+  and :func:`mma_probe` (x (ilp, m, k) @ y (k, n)).
 
 Launch counts are ``<wrapper>.launches``.
 """
@@ -22,5 +26,9 @@ Launch counts are ``<wrapper>.launches``.
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: F401
 from repro_torch.kernels.flash_decode_quant import (  # noqa: F401
     flash_decode_quant)
+from repro_torch.kernels.probe_chase import (  # noqa: F401
+    chase, make_chase_buffer)
+from repro_torch.kernels.probe_dep_chain import dep_chain  # noqa: F401
+from repro_torch.kernels.probe_mma import mma_probe  # noqa: F401
 from repro_torch.kernels.qmatmul import (  # noqa: F401
     pack_for_qmatmul, qmatmul, qmatmul_packed, quantize_for_qmatmul)

@@ -14,7 +14,13 @@ reference does; the kernel keeps p in fp32).  ``qmatmul`` /
 ``qmatmul_packed``: fp32 output rtol 1e-5, atol 1e-4 * sqrt(k / 1024)
 (only the summation order differs); bf16 output within 2 bf16 ulps of
 the plain version plus that fp32 tolerance; packed bit-identical to the
-container kernel.
+container kernel.  Probe kernels: ``chase`` exact; ``dep_chain``
+(``probe_dep_chain.assert_chain_close``): the compute workloads' int32,
+fp32, mixed1 and mixed2 (up to chain 40) values exact, fp64 and the
+public chain (a = 1.0001, b = 0.5) within (n + 1) ulps (fma against the
+plain version's multiply and add);
+``mma_probe`` bf16 out within 1 bf16 ulp + 1e-5 sqrt(k), TF32 atol
+2^-8 sqrt(k), fp32 out from bf16 inputs atol 1e-5 sqrt(k).
 """
 
 import numpy as np
@@ -23,6 +29,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels import probe_chase as pc
+from repro_torch.kernels import probe_dep_chain as pdc
+from repro_torch.kernels import probe_mma as pm
 from repro_torch.kernels.flash_decode_quant import (
     flash_decode_quant, flash_decode_quant_plain)
 from repro_torch.kernels.qmatmul import (
@@ -276,3 +285,105 @@ def test_qmatmul_fp32_x_and_ragged_n(cuda):
     qw, sc = quantize_for_qmatmul(w, "float8_e4m3fn")
     _assert_qmm_close(qmatmul(x, qw, sc, out_dtype=F32),
                       qmatmul_plain(x, qw, sc, F32), 256)
+
+
+# ------------------------------------------------------------------ #
+# probe kernels
+# ------------------------------------------------------------------ #
+
+@pytest.mark.parametrize("rows", [16, 4096, 1 << 17])
+def test_chase_rows(cuda, rows):
+    buf = pc.make_chase_buffer(rows, seed=rows)
+    want = pc.chase_reference(buf.numpy(), 8192)
+    buf = buf.cuda()
+    before = pc.chase.launches
+    assert int(pc.chase(buf, 8192)) == want == int(pc.chase_plain(buf, 8192))
+    run = pc.chase_timed(buf, 50)
+    assert pc.chase.launches == before + 2
+    assert run.index == pc.chase_reference(buf.cpu().numpy(), 50)
+    assert run.cycles > 0 and run.ns > 0
+
+
+@pytest.mark.parametrize("n", [1 << 12, 1 << 20, 1 << 24])
+def test_chase_flat(cuda, n):
+    nxt = pc.chase_cycle(n, 1)
+    buf = torch.from_numpy(nxt).view(n, 1).cuda()
+    assert int(pc.chase(buf, 8192)) == pc.chase_reference(nxt[:, None], 8192)
+
+
+@pytest.mark.parametrize("chain_len,ilp", [(10, 1), (100, 2), (57, 4),
+                                           (256, 8)])
+def test_dep_chain(cuda, chain_len, ilp):
+    x = torch.from_numpy(np.random.default_rng(chain_len).standard_normal(
+        (ilp, 8, 128)).astype(np.float32)).cuda()
+    before = pdc.dep_chain.launches
+    got = pdc.dep_chain(x, chain_len, ilp)
+    torch.cuda.synchronize()
+    assert pdc.dep_chain.launches == before + 1
+    pdc.assert_chain_close({"float": got},
+                           {"float": pdc.dep_chain_plain(x, chain_len)},
+                           chain_len, reference_constants=False)
+
+
+@pytest.mark.parametrize("lanes", [1, 4096])
+@pytest.mark.parametrize("workload,n", [
+    (w, n) for w in ("int32", "fp32", "fp64", "mixed1")
+    for n in (0, 1, 7, 40, 256, 100)] + [("mixed2", n) for n in (0, 1, 7, 40)])
+def test_chain_workloads(cuda, workload, n, lanes):
+    run = pdc.run_chain(workload, n, lanes, device="cuda")
+    torch.cuda.synchronize()
+    steps = n // 2 if workload == "mixed2" else n
+    assert run.unrolled == (steps in pdc.timed_steps())
+    assert run.cycles.shape == (lanes,) and (run.cycles >= 0).all()
+    pdc.assert_chain_close(run.values,
+                           pdc.chain_plain(workload, n, lanes, device="cuda"),
+                           n)
+
+
+def test_chain_timer_overhead_and_latency(cuda):
+    """Two back-to-back clock64 reads take a few cycles, and a dependent
+    fp32 chain of 256 takes 256 latencies of at least 2 cycles."""
+    c0 = pdc.run_chain("fp32", 0, 1, device="cuda").cycles.item()
+    c256 = pdc.run_chain("fp32", 256, 1, device="cuda").cycles.item()
+    assert 0 < c0 < 64
+    assert c256 - c0 >= 2 * 256
+
+
+def _mma_close(got, want, k, kind):
+    g, w = got.float(), want.float()
+    if kind == "bf16":
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+        tol = ulp + 1e-5 * k ** 0.5
+    else:
+        tol = (2.0 ** -8 if kind == "tf32" else 1e-5) * k ** 0.5
+    assert torch.isfinite(g).all()
+    assert ((g - w).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("mkn", [(256, 256, 128), (128, 128, 128)])
+@pytest.mark.parametrize("ilp", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "tf32"])
+def test_mma_probe(cuda, dtype, ilp, mkn):
+    m, k, n = mkn
+    g = torch.Generator(device="cuda").manual_seed(m + ilp)
+    x = torch.randn((ilp, m, k), generator=g, device="cuda").to(dtype)
+    y = torch.randn((k, n), generator=g, device="cuda").to(dtype)
+    before = pm.mma_probe.launches
+    got = pm.mma_probe(x, y, ilp=ilp)
+    torch.cuda.synchronize()
+    assert pm.mma_probe.launches == before + 1
+    assert got.dtype == dtype and got.shape == (ilp, m, n)
+    _mma_close(got, pm.mma_probe_plain(x, y, dtype), k,
+               "bf16" if dtype == BF16 else "tf32")
+
+
+@pytest.mark.parametrize("batch,ilp", [(1, 1), (4, 2), (16, 4)])
+def test_mma_products(cuda, batch, ilp):
+    g = torch.Generator(device="cuda").manual_seed(batch)
+    a = torch.randn((batch, ilp, 128, 128), generator=g, device="cuda")
+    b = torch.randn((batch, ilp, 128, 128), generator=g, device="cuda")
+    a, b = a.to(BF16), b.to(BF16)
+    got = pm.mma_products(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == F32
+    _mma_close(got, pm.mma_probe_plain(a, b, F32), 128, "fp32")
