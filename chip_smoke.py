@@ -50,6 +50,16 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    inputs) and the fp32-out products the sweep runs (atol 1e-5 sqrt(k)).
    At the characterize path's shapes it times each kernel, its plain
    version and, for ``mma_probe``, ``torch.bmm`` in bf16 (a yardstick);
+1e. ``ssd_scan`` against ``ssd_scan_plain`` (``models.ssm.ssd_chunked``)
+   on unit-scale inputs with model-like decays (dt_a in [-1.6, -0.001]):
+   (a) the serving call (bt 1, s 256, 80 heads, p 64, n 128, fp32 x,
+   bf16 b / c, an initial state); (b) bt 8, s 2048 (the carry crosses 8
+   chunks inside the kernel); (c) s 100 with chunk 32 (padding); (d)
+   bf16 x and b / c; (e) fp32 b / c and no initial state.  Tolerance atol
+   2e-4 on y and the state (the reference's own kernel test against its
+   oracle), a bf16 y also one bf16 ulp.  It times (a) and (b), kernel
+   and plain version, beside the least time the card could take; no
+   PyTorch call computes an SSD scan, so there is no yardstick;
 2. full-width gptneox-1b (16 layers, d_model 2048, vocab 50432, bf16,
    seeded random weights) through ``ServeEngine.run`` on the card: 8
    requests x 256-token prompts x 64 new tokens, batch 8, max_seq 1024,
@@ -67,6 +77,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    points ``quantize_for_qmatmul`` + ``qmatmul`` (fp8) and
    ``pack_for_qmatmul`` + ``qmatmul_packed`` (fp4) at its sizes 512^3 ..
    8192^3, each output held to the plain version;
+2d. full-width mamba2-2.7b (64 layers, d_model 2560, 80 SSD heads,
+   ssm_state 128, vocab 50280, bf16, seeded random weights) through
+   ``ServeEngine.run``: 8 requests x 512-token prompts x 64 new tokens,
+   batch 8, max_seq 1024, prefill_chunk 256, decode_block 16.  Every
+   request must end ``ok`` with 64 tokens, ``ssd_scan`` must have
+   launched once per prefill chunk per layer (8 x 2 x 64 = 1024) and its
+   plain version never; the slot-state bytes and the profiled decode
+   block are printed as for dense;
 3. the dense path on the card and on the CPU in fp32 with TF32 off, full
    width, 2 layers, the same seeded weights: 2 requests x 32-token
    prompts x 16 new tokens, decode_block 7.  Greedy streams must be
@@ -75,6 +93,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    fp8 + fp8): the weight store byte-identical on card and CPU,
    ``quantize_kv`` of one tensor byte-identical for all five formats,
    greedy streams identical, admission logits within atol 1e-3;
+3c. mamba2-2.7b cut to 2 layers at full width, fp32, TF32 off, the same
+   way: prompts of 300 and 600 tokens in prefill chunks of 512 (an SSD
+   chunk boundary inside the kernel, ragged tails, a carry into a second
+   call), 16 new tokens; greedy streams identical, the prefill's last
+   logits within atol 1e-3, ``ssd_scan`` launched 3 x 2 times;
 4. the probe suite ``repro_torch.launch.characterize`` on the card at the
    reference example's sizes, with every probe kernel's launch count and
    every plain version's call count set to 0 just before and read just
@@ -114,6 +137,8 @@ FDQ_REPLACES = "src/repro/kernels/flash_decode.py:182"
 QMM_SOURCE = "src/repro_torch/csrc/qmatmul.cu"
 QMM_REPLACES = "src/repro/kernels/qmatmul.py:76"
 QMMP_REPLACES = "src/repro/kernels/qmatmul.py:106"
+SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan.py:71"
 PROBE_SOURCES = {
     "dep_chain": ("src/repro_torch/csrc/probe_dep_chain.cu",
                   "src/repro/kernels/probe_dep_chain.py:40"),
@@ -122,7 +147,7 @@ PROBE_SOURCES = {
     "mma_probe": ("src/repro_torch/csrc/probe_mma.cu",
                   "src/repro/kernels/probe_mma.py:48")}
 SOURCES = ("flash_decode", "flash_decode_quant", "qmatmul", "probe_dep_chain",
-           "probe_chase", "probe_mma")
+           "probe_chase", "probe_mma", "ssd_scan")
 FORMATS = ("float8_e4m3fn", "float8_e5m2", "float6_e2m3fn",
            "float6_e3m2fn", "float4_e2m1fn")
 TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
@@ -713,11 +738,134 @@ def phase1d_probes(model):
     return out
 
 
-def serve(eng, prompts, counter, n_layers: int, label: str) -> dict:
+def ssd_case(seed, bt, s, h, p, n, x_dtype=torch.float32,
+             bc_dtype=torch.float32, with_state=True):
+    """x, dt_a, b, c and the initial state on the card: unit-scale
+    inputs (those of the reference's kernel test) with model-like decays,
+    dt_a = dt * -exp(A_log), A_log per head as ``init_ssm`` sets it and
+    dt log-uniform in [1e-3, 1e-1] (the range of softplus(dt_bias)):
+    dt_a in [-1.6, -0.001]."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale=0.5, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                * scale).to("cuda", dtype)
+
+    a = -np.linspace(1.0, 16.0, h, dtype=np.float32)
+    dt = np.exp(rng.uniform(math.log(1e-3), math.log(1e-1), (bt, s, h)))
+    dt_a = torch.from_numpy((dt * a).astype(np.float32)).to("cuda")
+    return (t((bt, s, h, p), dtype=x_dtype), dt_a,
+            t((bt, s, n), dtype=bc_dtype), t((bt, s, n), dtype=bc_dtype),
+            t((bt, h, p, n)) if with_state else None)
+
+
+def _pad_seq(tensors, chunk):
+    s = tensors[0].shape[1]
+    pad = (-s) % chunk
+    return [F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in tensors]
+
+
+def ssd_bound(x, dt_a, b, c, state, chunk, hbm, peak):
+    """(bound ms, bound_by, bytes, flops) of one call: each input read
+    once, y and the final state written once; 2q²n + 2q²p + 4qpn flops
+    per (row, head, chunk)."""
+    bt, s, h, p = x.shape
+    n = b.shape[-1]
+    moved = 2 * nbytes(x) + nbytes(dt_a, b, c) + bt * h * p * n * 4 * (
+        2 if state is not None else 1)
+    flops = bt * h * (s // chunk) * (2 * chunk * chunk * (n + p)
+                                     + 4 * chunk * p * n)
+    return (*bound(moved, flops, hbm, peak), moved, flops)
+
+
+def phase1e_ssd_scan(model):
+    """``ssd_scan`` against ``ssd_scan_plain`` on the card, fp32 math on
+    both sides; tolerance atol 2e-4 on y and the state, the reference
+    kernel test's own against its sequential oracle (a bf16 y may also
+    differ by one bf16 ulp, rtol 2^-7: both sides round their fp32 y to
+    bf16).  Then the times at (a) and (b)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    hbm, peak_bf16 = model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"]
+    peak_f32 = model.vector_flops["float32"]
+    bf16 = torch.bfloat16
+    serving = dict(bt=1, s=256, h=80, p=64, n=128, bc_dtype=bf16)
+    cases = {
+        # the serving path's call: x, dt_a fp32, b / c bf16, a carry in
+        "a_serving": (dict(serving, seed=41), 256),
+        # the carry inside the kernel crosses 8 chunks
+        "b_bt8_s2048": (dict(serving, seed=42, bt=8, s=2048), 256),
+        "c_s100_chunk32": (dict(seed=43, bt=2, s=100, h=4, p=64, n=128),
+                           32),
+        "d_bf16_x_and_bc": (dict(serving, seed=44, x_dtype=bf16), 256),
+        "e_fp32_no_state": (dict(serving, seed=45, bc_dtype=torch.float32,
+                                 with_state=False), 256),
+    }
+    errors = {}
+    for case, (spec, chunk) in cases.items():
+        args = ssd_case(**spec)
+        x, dt_a, b, c, state = args
+        y, st = ssd_scan(x, dt_a, b, c, chunk=chunk, initial_state=state)
+        torch.cuda.synchronize()
+        y_want, st_want = ssd_scan_plain(*_pad_seq(args[:4], chunk), chunk,
+                                         state)
+        torch.cuda.synchronize()
+        y_want = y_want[:, :x.shape[1]]
+        if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"ssd_scan {case}: output is not finite")
+        rtol = 2.0 ** -7 if x.dtype == bf16 else 0.0
+        err = max((y.float() - y_want.float()).abs().max().item(),
+                  (st - st_want).abs().max().item())
+        log(f"[kernel] ssd_scan {case}: max_abs_err {err:.3e} (y and state;"
+            f" |y| max {y.float().abs().max().item():.2f}; tol atol 2e-4, "
+            f"rtol {rtol})")
+        torch.testing.assert_close(y.float(), y_want.float(), atol=2e-4,
+                                   rtol=rtol)
+        torch.testing.assert_close(st, st_want, atol=2e-4, rtol=0.0)
+        errors[case] = err
+
+    entries = []
+    for case, reps in (("a_serving", (25, 12)), ("b_bt8_s2048", (7, 3))):
+        spec, chunk = cases[case]
+        base = ssd_case(**spec)
+        per_set = nbytes(*(t for t in base if t is not None))
+        sets = [base] + [ssd_case(**dict(spec, seed=spec["seed"] + 100 + i))
+                         for i in range(n_sets(per_set) - 1)]
+
+        def kern(x, dt_a, b, c, state, chunk=chunk):
+            return ssd_scan(x, dt_a, b, c, chunk=chunk, initial_state=state)
+
+        def plain(x, dt_a, b, c, state, chunk=chunk):
+            return ssd_scan_plain(x, dt_a, b, c, chunk, state)
+
+        ms = time_ms(kern, sets, *reps)
+        plain_ms = time_ms(plain, sets[:2], reps=5, n=2)
+        bound_ms, bound_by, moved, flops = ssd_bound(*base, chunk, hbm,
+                                                     peak_bf16)
+        log(f"[kernel] ssd_scan {case} timing: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {moved} B, {flops} flop "
+            f"at bf16 {peak_bf16 / 1e12:g} TFLOP/s); the same flops at the "
+            f"fp32 CUDA-core rate {peak_f32 / 1e12:g} TFLOP/s: "
+            f"{flops / peak_f32 * 1e3:.4f} ms; {len(sets)} input sets")
+        x = base[0]
+        entries.append({
+            "name": f"ssd_scan[{case},bt{x.shape[0]}_s{x.shape[1]}_h"
+                    f"{x.shape[2]}_p{x.shape[3]}_n{base[2].shape[-1]}]",
+            "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+            "launches": None, "max_abs_err": errors[case], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # no single PyTorch call computes an SSD scan
+            "library_ms": None})
+    return entries
+
+
+def serve(eng, prompts, counter, expected, label: str) -> dict:
     """Warm up, then serve ``prompts`` x 64 new tokens with the launch
     count of ``counter`` (a kernel wrapper) set to 0 just before and read
-    just after.  Checks every request and the count; prints and returns
-    the end-to-end metrics."""
+    just after.  Checks every request and that the count equals
+    ``expected(decode steps)``; prints and returns the end-to-end
+    metrics."""
     eng.submit(list(range(1, 41)), max_new_tokens=4)       # warm-up
     eng.run()
     eng.reset()
@@ -738,10 +886,10 @@ def serve(eng, prompts, counter, n_layers: int, label: str) -> dict:
     vocab = eng.model.cfg.vocab_size
     if not all(0 <= t < vocab for r in results for t in r.tokens):
         raise AssertionError(f"{label}: token id out of range")
-    if launches != n_layers * steps or launches == 0:
+    if launches != expected(steps) or launches == 0:
         raise AssertionError(f"{label}: {counter.__name__} launched "
-                             f"{launches} times; expected {n_layers} x "
-                             f"{steps} decode steps")
+                             f"{launches} times; expected "
+                             f"{expected(steps)} ({steps} decode steps)")
     t_admitted = max(r.first_token_t for r in results)
     t_done = max(r.finish_t for r in results)
     decode_s = t_done - t_admitted
@@ -754,7 +902,8 @@ def serve(eng, prompts, counter, n_layers: int, label: str) -> dict:
     log(f"[{label}] {len(results)} requests ok x 64 tokens; {steps} decode "
         f"steps in {eng.dispatches} blocks; {counter.__name__} launches "
         f"{launches}")
-    log(f"[{label}] prefill {out['prefill_s']:.3f} s (8 x 256 tokens), "
+    log(f"[{label}] prefill {out['prefill_s']:.3f} s ({len(prompts)} x "
+        f"{len(prompts[0])} tokens), "
         f"decode {out['tok_s']:.1f} tok/s, {out['step_ms']:.2f} ms per "
         f"decode step, mean TTFT {out['ttft_ms']:.1f} ms, peak memory "
         f"{out['peak_gib']:.2f} GiB")
@@ -788,7 +937,8 @@ def phase2_engine(cfg, prompts):
                       decode_block=16, prefill_chunk=32, device="cuda")
     log(f"[engine] {cfg.name}: {qstats['quantized_bytes'] / 2**30:.3f} GiB "
         f"params, {eng.kv_stats['kv_bytes'] / 2**30:.3f} GiB KV pool")
-    out = serve(eng, prompts, flash_decode, cfg.n_layers, "engine")
+    out = serve(eng, prompts, flash_decode,
+                lambda steps: cfg.n_layers * steps, "engine")
 
     # case (g): the kernel on the engine's own pool, layer 0
     kv = eng.cache["pos0"]["kv"]
@@ -826,7 +976,8 @@ def phase2b_quant_engine(cfg, prompts, weight_format, kv_format):
         f"s: weight_stats {json.dumps(ws)}")
     log(f"[{label}] kv_stats {json.dumps(ks)}")
     flash_decode.launches = 0
-    out = serve(eng, prompts, flash_decode_quant, cfg.n_layers, label)
+    out = serve(eng, prompts, flash_decode_quant,
+                lambda steps: cfg.n_layers * steps, label)
     if flash_decode.launches:
         raise AssertionError(f"{label}: the dense flash_decode launched "
                              f"{flash_decode.launches} times")
@@ -891,6 +1042,47 @@ def phase2c_gemm_path():
     return counts
 
 
+def phase2d_mamba2(prompts):
+    """Full-width mamba2-2.7b through ``ServeEngine.run``: every prefill
+    chunk of every layer launches ``ssd_scan`` (8 requests x 2 chunks x
+    64 layers), its plain version never runs; decode is the plain-torch
+    recurrence."""
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("mamba2-2.7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    chunk = 256
+    eng = ServeEngine(model, params, batch=8, max_seq=1024,
+                      decode_block=16, prefill_chunk=chunk, device="cuda")
+    state_bytes = sum(nbytes(*entry["ssm"].values())
+                      for entry in eng.cache.values())
+    log(f"[engine mamba2] {cfg.name}: "
+        f"{nbytes(*flatten(params).values()) / 2**30:.3f} GiB params, "
+        f"slot state {state_bytes} B "
+        f"({state_bytes / 2**30:.3f} GiB: conv carries + fp32 SSD state), "
+        f"KV bytes {eng.kv_stats['kv_bytes']}")
+    calls_per_prompt = math.ceil(len(prompts[0]) / chunk)
+    ssd_scan_plain.calls = 0
+    out = serve(eng, prompts, ssd_scan,
+                lambda steps: len(prompts) * calls_per_prompt * cfg.n_layers,
+                "engine mamba2")
+    if ssd_scan_plain.calls:
+        raise AssertionError(f"mamba2 serving: the plain SSD ran "
+                             f"{ssd_scan_plain.calls} times")
+    log(f"[engine mamba2] ssd_scan launches {out['launches']} "
+        f"({len(prompts)} x {calls_per_prompt} x {cfg.n_layers}), plain "
+        f"SSD calls 0")
+    out["state_bytes"] = state_bytes
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
 class _Recording:
     """A model whose decode steps keep their logits (for diagnosis)."""
 
@@ -906,15 +1098,17 @@ class _Recording:
         return out
 
 
-def _serve_both(model3, params3, prompts3, **kw):
+def _serve_both(model3, params3, prompts3, max_seq=64, prefill_chunk=32,
+                **kw):
     """Serve ``prompts3`` on the card and on the CPU.  Returns, by
     device, the streams, the admission logits, the decode logits of every
     step and the weight store."""
     from repro_torch.serve import ServeEngine
     runs = {}
     for dev in ("cuda", "cpu"):
-        e = ServeEngine(model3, params3, batch=2, max_seq=64,
-                        decode_block=7, prefill_chunk=32, device=dev, **kw)
+        e = ServeEngine(model3, params3, batch=2, max_seq=max_seq,
+                        decode_block=7, prefill_chunk=prefill_chunk,
+                        device=dev, **kw)
         seen, steps = [], []
         prefill = e._prefill_into_slot
 
@@ -1011,6 +1205,35 @@ def phase3b_quant_parity(model3, params3, prompts3):
         _check_parity(label, runs)
 
 
+def phase3c_mamba2_parity():
+    """mamba2-2.7b cut to 2 layers at full width, fp32, TF32 off (matmul
+    and the cuDNN conv), card against CPU.  Prompts of 300 and 600
+    tokens with prefill chunks of 512: the 300-token call spans an SSD
+    chunk boundary inside the kernel (2 chunks of 256) and ends in a
+    ragged tail; the 600-token prompt carries conv and state into a
+    second call with 88 valid tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg3 = dataclasses.replace(get_config("mamba2-2.7b"), n_layers=2,
+                               param_dtype="float32", compute_dtype="float32")
+    model3 = build_model(cfg3)
+    params3 = model3.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    prompts3 = [rng.integers(0, cfg3.vocab_size, n).tolist()
+                for n in (300, 600)]
+    before = ssd_scan.launches
+    runs = _serve_both(model3, params3, prompts3, max_seq=1024,
+                       prefill_chunk=512)
+    launched = ssd_scan.launches - before
+    if launched != 3 * cfg3.n_layers:
+        raise AssertionError(f"mamba2 parity: ssd_scan launched {launched}"
+                             f" times, expected {3 * cfg3.n_layers}")
+    _check_parity("parity mamba2 fp32 2-layer full width", runs)
+
+
 def phase4_characterize():
     """``repro_torch.launch.characterize`` at the reference example's
     sizes, the counters set to 0 just before and read just after; then a
@@ -1096,6 +1319,7 @@ def main() -> int:
     fdq_entries = phase1b_flash_decode_quant(hbm, peak_bf16)
     qmm_entries = phase1c_qmatmul(hbm, peak_bf16)
     probe_entries = phase1d_probes(model)
+    ssd_entries = phase1e_ssd_scan(model)
 
     # ---- 2: full-width serving, then the GEMM path ------------------- #
     cfg = get_config("gptneox-1b")
@@ -1113,10 +1337,16 @@ def main() -> int:
     for e in qmm_entries:
         e["launches"] = counts[e.pop("kernel")]
     torch.cuda.empty_cache()
+    vocab = get_config("mamba2-2.7b").vocab_size
+    mamba = phase2d_mamba2([rng.integers(0, vocab, 512).tolist()
+                            for _ in range(8)])
+    for e in ssd_entries:
+        e["launches"] = mamba["launches"]
 
     # ---- 3: card vs CPU, fp32 ------------------------------------------ #
     model3, params3, prompts3 = phase3_parity(cfg)
     phase3b_quant_parity(model3, params3, prompts3)
+    phase3c_mamba2_parity()
 
     # ---- 4: the probe suite -------------------------------------------- #
     counts = phase4_characterize()
@@ -1127,7 +1357,7 @@ def main() -> int:
     for line in smi.splitlines():                # again, near the end
         log(line)
     print(json.dumps({"kernels": [fd_entry, *fdq_entries, *qmm_entries,
-                                  *probe_entries]}))
+                                  *probe_entries, *ssd_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

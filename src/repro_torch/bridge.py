@@ -12,6 +12,7 @@ bf16 values) and is cast back to bfloat16 on the torch side.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -59,11 +60,17 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ArchConfig,
                       device="cpu", dtype: Optional[torch.dtype] = None
                       ) -> dict:
     """The reference's flattened params -> the port's parameter tree on
-    ``device`` (at ``dtype`` when given, else each leaf's own dtype).
-    Raises when the key set or a shape differs from what the port's
-    model for ``cfg`` expects."""
-    want = {k: tuple(v.shape) for k, v in flatten(
-        transformer.init_lm(cfg, None, "meta")).items()}
+    ``device``.  With ``dtype``, each leaf takes the dtype the port's
+    init gives it at ``param_dtype = dtype``: the leaves an init keeps in
+    float32 whatever the parameter dtype (the SSM's ``A_log``,
+    ``dt_bias`` and ``D``) stay float32.  Without, each leaf keeps its
+    own dtype.  Raises when the key set or a shape differs from what the
+    port's model for ``cfg`` expects."""
+    if dtype is not None:
+        cfg = dataclasses.replace(
+            cfg, param_dtype=str(dtype).removeprefix("torch."))
+    meta = flatten(transformer.init_lm(cfg, None, "meta"))
+    want = {k: tuple(v.shape) for k, v in meta.items()}
     got = {k: tuple(np.shape(v)) for k, v in flat.items()}
     if set(want) != set(got):
         raise ValueError(
@@ -72,7 +79,8 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ArchConfig,
     bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
     if bad:
         raise ValueError(f"param shapes differ (got, want): {bad}")
-    return unflatten({k: _to_tensor(v, device, dtype)
+    return unflatten({k: _to_tensor(v, device,
+                                    dtype and meta[k].dtype)
                       for k, v in flat.items()})
 
 

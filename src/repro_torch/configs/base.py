@@ -8,8 +8,9 @@ are stacked per position-in-period, so a layer leaf has a leading
 makes the weight bridge a plain copy.
 
 The fields are kept identical to the reference so configs of later
-slices drop in unchanged; this slice's model code reads only the dense
-attention-decoder subset and raises on the rest.
+slices drop in unchanged; the port's model code reads the attention
+decoder with dense FFNs and the SSM (mamba2) subset and raises on the
+rest.
 """
 
 from __future__ import annotations

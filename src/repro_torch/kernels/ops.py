@@ -15,6 +15,10 @@ wrapper:
   (n, k) quantized along k, scales (n, k/32)).T, with
   :func:`quantize_for_qmatmul` / :func:`pack_for_qmatmul` to make the
   weights;
+* :func:`ssd_scan`: the Mamba-2 SSD chunked scan, x (bt, s, h, p)
+  pre-discretized, dt_a (bt, s, h), b / c (bt, s, n), optional
+  initial_state (bt, h, p, n) -> (y (bt, s, h, p), final_state), s
+  padded to the chunk with an identity tail;
 * the probe kernels, with the reference's signatures: :func:`dep_chain`
   (x (ilp, 8, 128) fp32 through ``chain_len`` serial ``x * a + b``),
   :func:`chase` (final index of a walk over :func:`make_chase_buffer`)
@@ -32,3 +36,4 @@ from repro_torch.kernels.probe_dep_chain import dep_chain  # noqa: F401
 from repro_torch.kernels.probe_mma import mma_probe  # noqa: F401
 from repro_torch.kernels.qmatmul import (  # noqa: F401
     pack_for_qmatmul, qmatmul, qmatmul_packed, quantize_for_qmatmul)
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401

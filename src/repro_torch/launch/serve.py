@@ -3,6 +3,12 @@ batching, on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gptneox-1b \
         --requests 8 --batch 8 --max-seq 1024 --prompt-len 256 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --requests 8 --batch 8 --max-seq 1024 --prompt-len 512 \
+        --max-new 64 --prefill-chunk 256
+
+``--arch`` takes any config of ``repro_torch.configs`` (gptneox-1b,
+mamba2-2.7b).
 
 Weights come from the port's own seeded init (``torch.Generator`` seed
 0); prompts from ``numpy.random.default_rng(1)``.  ``--device cpu`` runs

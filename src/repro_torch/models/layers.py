@@ -1,5 +1,5 @@
-"""Primitive layers: norms, embeddings, RoPE, MLP variants, initializers
-(counterpart of ``repro.models.layers``).
+"""Primitive layers: norms, embeddings, RoPE, MLP variants, the causal
+depthwise conv, initializers (counterpart of ``repro.models.layers``).
 
 Plain functions on tensors; parameters are nested dicts of tensors.
 Parameters are stored at ``param_dtype``, activations flow at
@@ -131,3 +131,19 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
     return torch.tanh(x / cap) * cap
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                  ) -> torch.Tensor:
+    """Depthwise causal conv over x (batch, seq, channels) with kernel w
+    (channels, K) and a zero left-pad of K - 1, plus bias b (channels,).
+    The result is contiguous in (batch, seq, channels), the layout the
+    SSD kernel reads.
+
+    A float32 conv on the card goes through cuDNN, in TF32 unless
+    ``torch.backends.cudnn.allow_tf32`` is False."""
+    k = w.shape[-1]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    xc = F.pad(x.to(dt).transpose(1, 2), (k - 1, 0))    # (b, C, K-1+s)
+    out = F.conv1d(xc, w.to(dt)[:, None, :], groups=x.shape[-1])
+    return out.transpose(1, 2).contiguous() + b

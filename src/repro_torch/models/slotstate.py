@@ -1,5 +1,6 @@
 """Per-slot decode-state protocol (counterpart of
-``repro.models.slotstate``, the ring-KV part of this slice).
+``repro.models.slotstate``): the ring-KV parts of the attention layers
+and the recurrent parts of the SSM layers.
 
 The serving cache is a dict of ``pos{i}`` layer entries whose leaves
 carry the period axis first: ``(n_periods, batch, ...)``.  Three rules:
@@ -9,13 +10,14 @@ carry the period axis first: ``(n_periods, batch, ...)``.  Three rules:
    *view*, so writes into it land in the pool directly (the reference
    needs ``put_row`` to write the row back; in place, nothing does).
 2. **Eviction** (:func:`clear_slot`): ring parts mark the slot empty
-   (``slot_pos = -1``); payload bytes stay and position masking makes
-   them unreachable.
-3. **Decode-step advancement**: ring KV is masked by the ``active``
-   predicate at the write site (``cache_write_decode(active=...)``) and
-   updated in place, so the reference's ``decode_advance`` has nothing
-   left to do for it.  Recurrent and read-only parts, which need it,
-   arrive with the SSM and enc-dec slices.
+   (``slot_pos = -1``; payload bytes stay and position masking makes
+   them unreachable); every other part (SSM conv carries and state)
+   zeroes the slot's row: zero IS its empty state.
+3. **Decode-step advancement** under one ``active`` predicate: ring KV
+   is masked at the write site (``cache_write_decode(active=...)``) and
+   updated in place; a recurrent part takes its new value on the active
+   rows only (:func:`decode_advance`), since the port updates it in
+   place.  Read-only parts arrive with the enc-dec slice.
 """
 
 from __future__ import annotations
@@ -40,13 +42,22 @@ def take_row(tree: dict, slot: int) -> dict:
     return {name: leaf[slot:slot + 1] for name, leaf in tree.items()}
 
 
+def decode_advance(active: Optional[torch.Tensor], tree: dict,
+                   new: dict) -> None:
+    """Rule 3 for a recurrent part: write ``new`` into the part's leaves
+    (batch, ...) in place, on the ``active`` rows only (all rows when
+    ``active`` is None)."""
+    for name, leaf in tree.items():
+        leaf.copy_(mask_rows(active, new[name], leaf))
+
+
 def clear_slot(cache: dict, slot: int) -> dict:
     """Evict pool row ``slot`` from the whole cache (rule 2), in place."""
     for entry in cache.values():
-        for part, tree in entry.items():
-            if "slot_pos" not in tree:
-                raise NotImplementedError(
-                    f"cache part {part!r} has no ring bookkeeping; "
-                    f"recurrent parts arrive with the SSM slice")
-            tree["slot_pos"][:, slot] = -1
+        for tree in entry.values():
+            if "slot_pos" in tree:
+                tree["slot_pos"][:, slot] = -1
+            else:
+                for leaf in tree.values():
+                    leaf[:, slot].zero_()
     return cache

@@ -1,6 +1,6 @@
-"""Model assembly for serving: parameter tree, pooled ring cache, chunked
+"""Model assembly for serving: parameter tree, pooled cache, chunked
 prefill and the decode step (counterpart of ``repro.models.transformer``,
-attention mixer + dense FFN).
+attention mixer + dense FFN, and the SSM mixer with no FFN: mamba2).
 
 The reference scans over the period axis with ``lax.scan``; here a Python
 loop walks the layers, and each layer reads its slice ``leaf[l]`` of the
@@ -15,6 +15,12 @@ which reads the packed codes and e8m0 scales and expands them on the way
 in, where the reference dequantizes the whole cache each step
 (``cache_kv``).  Chunked prefill keeps plain ``cache_attention`` over the
 dequantized history, which has no kernel in the reference either.
+
+An SSM layer (``models.ssm``) keeps its conv carries and fp32 state in
+the cache entry's ``ssm`` part.  Its chunked prefill runs the SSD core
+through the hand-written CUDA ``kernels.ssd_scan``, where the reference
+runs the XLA ``ssd_chunked``; its decode step is the one-token
+recurrence in plain torch, as in the reference.
 """
 
 from __future__ import annotations
@@ -29,18 +35,21 @@ from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_decode_quant import flash_decode_quant
 from repro_torch.models import attention as attn
 from repro_torch.models import slotstate
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     apply_mlp, apply_rope, dense_init, embed, init_mlp, rms_norm, unembed)
 
 
 def _check_block(cfg: ArchConfig, blk: BlockSpec) -> None:
-    """This slice ports the attention decoder with dense FFNs."""
-    if blk.mixer != "attn":
+    """The port has the attention decoder with dense FFNs and the SSM
+    block with no FFN (mamba2); the hybrid waits for the MoE slice."""
+    if blk.mixer not in ("attn", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: mixer {blk.mixer!r} arrives with the SSM slice")
-    if blk.ffn != "dense":
+            f"{cfg.name}: mixer {blk.mixer!r} is not ported")
+    if blk.ffn != ("dense" if blk.mixer == "attn" else "none"):
         raise NotImplementedError(
-            f"{cfg.name}: ffn {blk.ffn!r} arrives with the MoE slice")
+            f"{cfg.name}: ffn {blk.ffn!r} after a {blk.mixer!r} mixer "
+            f"arrives with the MoE / hybrid slice")
     if blk.cross_attn or cfg.is_encoder_decoder or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and VLM models arrive with "
@@ -61,6 +70,9 @@ def init_block(cfg: ArchConfig, blk: BlockSpec, dtype,
                generator: torch.Generator, device, lead=()) -> dict:
     _check_block(cfg, blk)
     ones = torch.ones((*lead, cfg.d_model), dtype=dtype, device=device)
+    if blk.mixer == "ssm":
+        return {"ln_mix": ones,
+                "ssm": ssm.init_ssm(cfg, dtype, generator, device, lead)}
     return {"ln_mix": ones,
             "attn": attn.init_attention(cfg, dtype, generator, device, lead),
             "ln_ffn": ones.clone(),
@@ -98,14 +110,20 @@ def unembed_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device) -> dict:
-    """Pooled ring cache: ``pos{i}/kv/{k,v}`` (n_periods, batch, cap,
-    hkv, d) at the cache dtype, or the quantized leaves of
+    """Pooled cache.  Attention: ring ``pos{i}/kv/{k,v}`` (n_periods,
+    batch, cap, hkv, d) at the cache dtype, or the quantized leaves of
     ``cfg.kv_format_for(i)``, and ``slot_pos`` (n_periods, batch, cap)
-    = -1.  Capacities honour sliding windows."""
+    = -1; capacities honour sliding windows.  SSM: ``pos{i}/ssm`` conv
+    carries at the compute dtype and the fp32 state, zeros."""
     kv_dtype = resolve_dtype(cfg.cache_dtype or cfg.compute_dtype)
     cache = {}
     for i, blk in enumerate(cfg.block_pattern()):
         _check_block(cfg, blk)
+        if blk.mixer == "ssm":
+            cache[f"pos{i}"] = {"ssm": ssm.init_ssm_cache(
+                cfg, batch, resolve_dtype(cfg.compute_dtype), device,
+                lead=(cfg.n_periods,))}
+            continue
         cache[f"pos{i}"] = {"kv": attn.init_kv_cache(
             batch, attn.cache_capacity(max_seq, blk.window),
             cfg.n_kv_heads, cfg.head_dim, kv_dtype, device,
@@ -117,11 +135,14 @@ def kv_cache_stats(cache: dict, cfg: ArchConfig) -> dict:
     """Measured KV storage: total payload bytes (codes + scales, or the
     dense K/V), bytes per logical element and per cached token position
     across the layer stack, per position-in-period (``slot_pos``
-    bookkeeping excluded), with the reference's keys."""
+    bookkeeping and SSM state excluded: an attention-free model reports
+    0), with the reference's keys."""
     plain = cfg.cache_dtype or cfg.compute_dtype
     kv_bytes, elems, per_token = 0, 0, 0.0
     per_layer = {}
     for name, entry in cache.items():
+        if "kv" not in entry:
+            continue
         kv = entry["kv"]
         n_p, b, cap = kv["slot_pos"].shape
         payload = sum(t.numel() * t.element_size()
@@ -148,8 +169,9 @@ def min_cache_capacity(cfg: ArchConfig, max_seq: int) -> int:
 
 
 def clear_slot(cache: dict, slot: int) -> dict:
-    """Evict pool row ``slot``: its ring entries become empty
-    (slot_pos = -1), in place.  See ``repro_torch.models.slotstate``."""
+    """Evict pool row ``slot``, in place: its ring entries become empty
+    (slot_pos = -1) and its SSM carries and state zero.  See
+    ``repro_torch.models.slotstate``."""
     return slotstate.clear_slot(cache, slot)
 
 
@@ -168,8 +190,9 @@ def lm_decode_step(params: dict, cache: dict, token: torch.Tensor,
                    pos: torch.Tensor, cfg: ArchConfig,
                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step.  token: (b,) int; pos: (b,) int32 per-row position
-    of the incoming token.  Writes the step's K/V into the cache in place
-    and returns logits (b, vocab) fp32.
+    of the incoming token.  Writes the step's K/V (attention) or advances
+    the carries and state (SSM) in the cache in place and returns logits
+    (b, vocab) fp32.
 
     ``active`` (b,) bool masks the cache writes: inactive pool rows ride
     along in the fused loop, their logits are garbage and the caller
@@ -180,8 +203,13 @@ def lm_decode_step(params: dict, cache: dict, token: torch.Tensor,
     for layer in range(cfg.n_periods):
         for i, blk in enumerate(cfg.block_pattern()):
             p = _at(params["layers"][f"pos{i}"], layer)
-            kv = _at(cache[f"pos{i}"], layer)["kv"]
+            entry = _at(cache[f"pos{i}"], layer)
             h = rms_norm(p["ln_mix"], x, cfg.norm_eps)
+            if blk.mixer == "ssm":
+                x = x + ssm.ssm_decode(p["ssm"], h, entry["ssm"], cfg,
+                                       active=active)
+                continue
+            kv = entry["kv"]
             q = attn.project_q(p["attn"], h)
             k, v = attn.project_kv(p["attn"], h)
             q = apply_rope(q, positions, cfg.rope_theta)
@@ -215,7 +243,8 @@ def lm_prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
     with the chunk's own raw K/V (position masking gives intra-chunk
     causality); the chunk is written afterwards.  Writing first would
     evict, in a sliding-window ring, positions still inside the windows
-    of the chunk's earlier queries."""
+    of the chunk's earlier queries.  An SSM layer carries its conv
+    inputs and state across chunks (``models.ssm.ssm_prefill_chunk``)."""
     cdt = resolve_dtype(cfg.compute_dtype)
     s = tokens.shape[0]
     dev = tokens.device
@@ -226,9 +255,14 @@ def lm_prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
     for layer in range(cfg.n_periods):
         for i, blk in enumerate(cfg.block_pattern()):
             p = _at(params["layers"][f"pos{i}"], layer)
-            kv_row = slotstate.take_row(_at(cache[f"pos{i}"], layer)["kv"],
-                                        slot)
+            entry = _at(cache[f"pos{i}"], layer)
             h = rms_norm(p["ln_mix"], x, cfg.norm_eps)
+            if blk.mixer == "ssm":
+                x = x + ssm.ssm_prefill_chunk(
+                    p["ssm"], h, slotstate.take_row(entry["ssm"], slot),
+                    cfg, valid, valid_len)
+                continue
+            kv_row = slotstate.take_row(entry["kv"], slot)
             q = attn.project_q(p["attn"], h)
             k, v = attn.project_kv(p["attn"], h)
             q = apply_rope(q, positions[None, :], cfg.rope_theta)

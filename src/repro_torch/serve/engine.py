@@ -1,19 +1,22 @@
 """Batched serving engine with continuous batching (counterpart of
 ``repro.serve.engine``, greedy serving).
 
-A fixed pool of ``batch`` slots shares one ring KV cache.  Admission is
-chunked pooled prefill: a prompt streams into its slot's region in
-chunks of ``prefill_chunk`` tokens.  Decode is the fused loop
+A fixed pool of ``batch`` slots shares one cache: ring KV for attention
+layers, conv carries and the fp32 state for SSM layers (the slot-state
+protocol of ``models.slotstate``; the engine does not know the family).
+Admission is chunked pooled prefill: a prompt streams into its slot's
+region in chunks of ``prefill_chunk`` tokens.  Decode is the fused loop
 (:meth:`ServeEngine.decode_loop`): K steps of decode -> greedy sample ->
 bookkeeping run back to back on the device with no host read inside;
 tokens and emit codes come back in one read per block (:meth:`_harvest`).
 Inactive slots ride along masked: they neither sample nor write.
 
 State is updated **in place**, unlike the reference's functional
-arrays: the cache's pool rows are written with ``index_put_`` (the pool
-is about 1 GB at full gptneox-1b width, batch 8, max_seq 1024), and the
-device-resident slot state (``pos``, ``remaining``, ``last_token``,
-``active``) with ``copy_`` and indexed writes.
+arrays: the cache's pool rows are written with ``index_put_`` or
+``copy_`` (the pool is about 1 GB at full gptneox-1b width, batch 8,
+max_seq 1024, and 1.34 GB of SSM state at full mamba2-2.7b width, batch
+8), and the device-resident slot state (``pos``, ``remaining``,
+``last_token``, ``active``) with ``copy_`` and indexed writes.
 
 Entry points run on the card: ``device=None`` resolves to ``cuda`` and
 raises when there is none.  Pass ``device="cpu"`` to run the plain
@@ -29,9 +32,11 @@ from one dense ``compute_dtype`` copy of it, as the reference's engine
 does (``qmatmul`` cannot read this store: it is blocked along each
 leaf's last axis, not along k).
 
-Not in this slice (they raise ``NotImplementedError``): mesh serving,
-admission policies, speculation, fault injection and cancel, and
-sampled decoding (``temperature > 0``).
+Not ported yet (they raise ``NotImplementedError``): mesh serving,
+admission policies, speculation, fault injection and cancel, sampled
+decoding (``temperature > 0``), and the model families other than the
+attention decoder and the SSM (hybrid, MoE, enc-dec, VLM), which the
+model refuses.
 """
 
 from __future__ import annotations
@@ -152,11 +157,12 @@ class ServeEngine:
         """Clear all serving state (cache, slots, queue, results); the
         parameters and the cache's tensors stay (reset in place)."""
         for entry in self.cache.values():
-            for name, leaf in entry["kv"].items():
-                if name == "slot_pos":
-                    leaf.fill_(-1)
-                else:
-                    leaf.zero_()
+            for tree in entry.values():      # ring KV or SSM carries/state
+                for name, leaf in tree.items():
+                    if name == "slot_pos":
+                        leaf.fill_(-1)
+                    else:
+                        leaf.zero_()
         self.state = self._init_state()
         self.slot_req: List[Optional[_Request]] = [None] * self.batch
         self.out_tokens: List[List[int]] = [[] for _ in range(self.batch)]

@@ -92,3 +92,49 @@ def test_mismatched_tree_raises(ref_flat):
     del bad["unembed"]
     with pytest.raises(ValueError, match="keys"):
         bridge.params_from_numpy(bad, cfg, "cpu")
+
+
+@pytest.fixture(scope="module")
+def mamba_flat():
+    model = ref_build_model(ref_get_config("mamba2-2.7b").reduced())
+    params = model.init(jax.random.PRNGKey(0))
+    return {k: np.asarray(v) for k, v in _flatten(params).items()}
+
+
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "reduced"])
+def test_port_init_builds_the_reference_mamba2_tree(name):
+    """The mamba2 key set, shapes and leaf dtypes of the reference's
+    init_lm (``A_log``, ``dt_bias`` and ``D`` float32 under bf16
+    params); the full config through shapes only."""
+    ref_cfg = ref_get_config("mamba2-2.7b")
+    cfg = get_config("mamba2-2.7b")
+    if name == "reduced":
+        ref_cfg, cfg = ref_cfg.reduced(), cfg.reduced()
+    want = jax.eval_shape(lambda: ref_build_model(ref_cfg).init(
+        jax.random.PRNGKey(0)))
+    want = {k: (tuple(v.shape), str(v.dtype))
+            for k, v in _flatten(want).items()}
+    got = {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+           for k, v in bridge.flatten(init_lm(cfg, None, "meta")).items()}
+    assert got == want
+    assert "unembed" not in got                     # tied embeddings
+
+
+def test_mamba2_roundtrip_and_one_dtype_bridge(mamba_flat):
+    """Bit-exact round trip; bridged at one dtype (bf16), every leaf
+    takes the dtype the port's init gives it at that dtype, so the
+    float32 SSM leaves stay float32 with their values."""
+    cfg = get_config("mamba2-2.7b").reduced()
+    back = bridge.params_to_numpy(
+        bridge.params_from_numpy(mamba_flat, cfg, "cpu"))
+    assert list(back) == list(mamba_flat)
+    for k, want in mamba_flat.items():
+        np.testing.assert_array_equal(back[k].view(np.uint32),
+                                      want.view(np.uint32))
+    params = bridge.params_from_numpy(mamba_flat, cfg, "cpu",
+                                      dtype=torch.bfloat16)
+    fp32 = {f"layers/pos0/ssm/{k}" for k in ("A_log", "dt_bias", "D")}
+    for k, t in bridge.flatten(params).items():
+        assert t.dtype == (torch.float32 if k in fp32 else torch.bfloat16), k
+        if k in fp32:
+            np.testing.assert_array_equal(t.numpy(), mamba_flat[k])

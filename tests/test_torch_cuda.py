@@ -20,7 +20,12 @@ fp32, mixed1 and mixed2 (up to chain 40) values exact, fp64 and the
 public chain (a = 1.0001, b = 0.5) within (n + 1) ulps (fma against the
 plain version's multiply and add);
 ``mma_probe`` bf16 out within 1 bf16 ulp + 1e-5 sqrt(k), TF32 atol
-2^-8 sqrt(k), fp32 out from bf16 inputs atol 1e-5 sqrt(k).
+2^-8 sqrt(k), fp32 out from bf16 inputs atol 1e-5 sqrt(k).  ``ssd_scan``
+(fp32 math on both sides, unit-scale inputs): y and the final state
+atol 2e-4, the tolerance of the reference's own kernel test against its
+sequential oracle (``tests/test_kernels.py``); a bf16 y may also
+differ by one bf16 ulp (rtol 2^-7: both sides round their fp32 y to
+bf16).
 """
 
 import numpy as np
@@ -37,6 +42,7 @@ from repro_torch.kernels.flash_decode_quant import (
 from repro_torch.kernels.qmatmul import (
     pack_for_qmatmul, qmatmul, qmatmul_packed, qmatmul_packed_plain,
     qmatmul_plain, quantize_for_qmatmul)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import attention as attn
 from repro_torch.models.model import build_model
 from repro_torch.serve import ServeEngine
@@ -387,3 +393,103 @@ def test_mma_products(cuda, batch, ilp):
     torch.cuda.synchronize()
     assert got.dtype == F32
     _mma_close(got, pm.mma_probe_plain(a, b, F32), 128, "fp32")
+
+
+# --------------------------------------------------------------------- #
+# ssd_scan
+# --------------------------------------------------------------------- #
+
+def _ssd_inputs(seed, bt, s, h, p, n, x_dtype=F32, bc_dtype=F32,
+                with_state=True):
+    """Unit-scale inputs (those of tests/test_kernels.py) with model-like
+    decays: dt_a = dt * -exp(A_log), A_log per head as ``init_ssm`` sets
+    it and dt log-uniform in [1e-3, 1e-1]: dt_a in [-1.6, -0.001]."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale=0.5, dtype=F32):
+        return torch.from_numpy(
+            rng.standard_normal(shape, np.float32) * scale).to("cuda", dtype)
+
+    a = -np.linspace(1.0, 16.0, h, dtype=np.float32)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (bt, s, h)))
+    dt_a = torch.from_numpy((dt * a).astype(np.float32)).to("cuda")
+    state = t((bt, h, p, n)) if with_state else None
+    return (t((bt, s, h, p), dtype=x_dtype), dt_a,
+            t((bt, s, n), dtype=bc_dtype), t((bt, s, n), dtype=bc_dtype),
+            state)
+
+
+def _check_ssd(x, dt_a, b, c, state, chunk):
+    before = ssd_scan.launches
+    y, st = ssd_scan(x, dt_a, b, c, chunk=chunk, initial_state=state)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    s = x.shape[1]
+    pad = (-s) % chunk
+    padded = [torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+              for t in (x, dt_a, b, c)]
+    y_want, st_want = ssd_scan_plain(*padded, chunk, state)
+    y_want = y_want[:, :s]
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert st.dtype == F32 and torch.isfinite(y).all()
+    rtol = 2.0 ** -7 if x.dtype == BF16 else 0.0
+    torch.testing.assert_close(y.float(), y_want.float(), atol=2e-4,
+                               rtol=rtol)
+    torch.testing.assert_close(st, st_want, atol=2e-4, rtol=0.0)
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 100, 256])
+@pytest.mark.parametrize("s,h,p,n", [(128, 2, 32, 16), (192, 4, 64, 32),
+                                     (256, 3, 64, 128), (100, 2, 16, 8)])
+def test_ssd_scan_shapes(cuda, chunk, s, h, p, n):
+    _check_ssd(*_ssd_inputs(s + chunk, 2, s, h, p, n), chunk)
+
+
+@pytest.mark.parametrize("x_dtype,bc_dtype", [(F32, BF16), (BF16, BF16),
+                                              (BF16, F32)])
+def test_ssd_scan_dtypes(cuda, x_dtype, bc_dtype):
+    _check_ssd(*_ssd_inputs(3, 2, 300, 4, 64, 128, x_dtype, bc_dtype),
+               chunk=128)
+
+
+def test_ssd_scan_zero_initial_state_and_long_carry(cuda):
+    """No initial state; the carry inside the kernel crosses 8 chunks."""
+    _check_ssd(*_ssd_inputs(4, 2, 2048, 4, 64, 128, with_state=False),
+               chunk=256)
+
+
+def test_ssd_scan_refuses_what_it_does_not_take(cuda):
+    x, dt_a, b, c, state = _ssd_inputs(5, 1, 64, 2, 80, 16)
+    with pytest.raises(ValueError, match="p <= 64"):
+        ssd_scan(x, dt_a, b, c, chunk=32)
+    x, dt_a, b, c, state = _ssd_inputs(5, 1, 64, 2, 32, 16)
+    with pytest.raises(TypeError):
+        ssd_scan(x, dt_a.double(), b, c, chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt_a, b, c,
+                 chunk=32)
+
+
+def test_mamba2_engine_card_matches_cpu(cuda):
+    """mamba2-2.7b reduced, fp32, TF32 off (matmul and the cuDNN conv):
+    the engine on the card gives the CPU's greedy streams and launches
+    ssd_scan once per prefill chunk per layer; the CPU never does."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("mamba2-2.7b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(model, params, batch=2, max_seq=64,
+                          decode_block=4, prefill_chunk=8, device=dev)
+        eng.submit([int(2 + (i * 11) % 300) for i in range(20)],
+                   max_new_tokens=9)
+        eng.submit([3, 4, 5], max_new_tokens=2)
+        eng.submit([7, 1, 7, 1, 7], max_new_tokens=5)
+        before = ssd_scan.launches
+        streams[dev] = [(r.status, r.tokens) for r in eng.run()]
+        launched = ssd_scan.launches - before
+        assert launched == ((3 + 1 + 1) * cfg.n_layers
+                            if dev == "cuda" else 0)
+    assert streams["cuda"] == streams["cpu"]

@@ -18,6 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_decode_quant as fdq
 from repro_torch.kernels import qmatmul as qm
+from repro_torch.kernels import ssd_scan as kss
 from repro_torch.models import attention as attn
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.model import build_model
@@ -182,3 +183,42 @@ def test_plain_version_counts_no_launch():
                        qm.qmatmul_packed(x, pw, sc, "float4_e2m1fn"))
     assert (fdq.flash_decode_quant.launches, qm.qmatmul.launches,
             qm.qmatmul_packed.launches) == counts
+
+
+def _ssd_inputs(device="cpu"):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(1, 40, 2, 16, generator=g)
+    dt_a = -torch.rand(1, 40, 2, generator=g)
+    b, c = torch.randn(2, 1, 40, 8, generator=g)
+    state = torch.randn(1, 2, 16, 8, generator=g)
+    return [t.to(device) for t in (x, dt_a, b, c, state)]
+
+
+def test_ssd_scan_kernel_path_without_library_raises(monkeypatch):
+    """The ssd_scan kernel path with no compiler to build its library
+    raises; it does not fall back to the plain version, and counts no
+    launch and no plain call."""
+    monkeypatch.setattr(compat, "nvcc_path", lambda: None)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR / "absent")
+    before = (kss.ssd_scan.launches, kss.ssd_scan_plain.calls)
+    x, dt_a, b, c, state = _ssd_inputs()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kss._kernel(x, dt_a, b, c, 40, state)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("ssd_scan")
+    assert (kss.ssd_scan.launches, kss.ssd_scan_plain.calls) == before
+
+
+def test_ssd_scan_refuses_other_devices_and_counts_plain_calls():
+    """A meta tensor raises; a CPU tensor takes the plain version, which
+    counts a plain call and no launch."""
+    x, dt_a, b, c, state = _ssd_inputs("meta")
+    with pytest.raises(ValueError, match="cuda"):
+        kss.ssd_scan(x, dt_a, b, c, chunk=32, initial_state=state)
+    before = (kss.ssd_scan.launches, kss.ssd_scan_plain.calls)
+    y, st = kss.ssd_scan(*_ssd_inputs()[:4], chunk=32,
+                         initial_state=_ssd_inputs()[4])
+    assert y.shape == (1, 40, 2, 16) and st.shape == (1, 2, 16, 8)
+    assert (kss.ssd_scan.launches, kss.ssd_scan_plain.calls) == (
+        before[0], before[1] + 1)
