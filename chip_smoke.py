@@ -60,6 +60,19 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    oracle), a bf16 y also one bf16 ulp.  It times (a) and (b), kernel
    and plain version, beside the least time the card could take; no
    PyTorch call computes an SSD scan, so there is no yardstick;
+1f. ``flash_attention`` against ``flash_attention_plain`` (the
+   reference's ``attention()`` dispatch): (a) gptneox-1b's shape b 8,
+   s 2048, hq = hkv = 16, d 128, bf16, causal; (b) the same in fp32; (c)
+   GQA 32/8 with d 64, sq 384 over skv 1000; (d) window 256 with softcap
+   50; (e) non-causal; (f) ragged sq 96 over skv 130; (g) q_offset 512,
+   sq 128 over skv 640; (h) d 256.  Tolerances of the reference's kernel
+   test: fp32 atol 2e-5; bf16 atol 2e-2 (the plain version rounds the
+   normalized p to bf16 before PV, the kernel the running-max p); a row
+   that sees no key must be 0.  At (a) and (b) it times the kernel, the
+   plain version and, as a yardstick only, SDPA with ``is_causal``,
+   beside the bound (bytes of q, k, v and out at the HBM rate; 4 d flops
+   per visible (query, key) pair at the bf16 tensor-core or fp32 vector
+   peak);
 2. full-width gptneox-1b (16 layers, d_model 2048, vocab 50432, bf16,
    seeded random weights) through ``ServeEngine.run`` on the card: 8
    requests x 256-token prompts x 64 new tokens, batch 8, max_seq 1024,
@@ -85,6 +98,17 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    launched once per prefill chunk per layer (8 x 2 x 64 = 1024) and its
    plain version never; the slot-state bytes and the profiled decode
    block are printed as for dense;
+2e. the whole-sequence path at full width, bf16, seeded weights:
+   gptneox-1b ``Model.forward`` on 8 x 2048 tokens, ``Model.prefill`` of
+   the same prompts (max_seq 2112), then 64 greedy ``Model.decode_step``
+   calls; ``flash_attention`` must launch exactly 16 times per forward
+   and per prefill and its plain version never, ``flash_decode`` 16 times
+   per decode step; prefill's last logits within atol 1e-3 of forward's
+   at position 2047.  Then mamba2-2.7b ``Model.prefill`` on 8 x 2048
+   tokens and 16 greedy decode steps: ``ssd_scan`` exactly 64 launches
+   (one per layer), its plain version never.  Wall and profiled device
+   times, prefill tokens/s, ms per decode step, peak memory and
+   flash_attention's device ms per call are printed;
 3. the dense path on the card and on the CPU in fp32 with TF32 off, full
    width, 2 layers, the same seeded weights: 2 requests x 32-token
    prompts x 16 new tokens, decode_block 7.  Greedy streams must be
@@ -98,6 +122,13 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    chunk boundary inside the kernel, ragged tails, a carry into a second
    call), 16 new tokens; greedy streams identical, the prefill's last
    logits within atol 1e-3, ``ssd_scan`` launched 3 x 2 times;
+3d. the whole-sequence path the same way (fp32, TF32 off, 2 layers at
+   full width): gptneox-1b, 2 x 300-token prompts, prefill, 16 greedy
+   steps, then forward over prompt + stream: streams identical, forward
+   and prefill logits within atol 1e-3 and the prefill's K/V within 1e-4
+   of the CPU's, the card's decode logits within 5e-4 of its forward's;
+   mamba2-2.7b prompts of 300 and 600 tokens: streams identical, prefill
+   logits and the SSM carries and state within atol 1e-3;
 4. the probe suite ``repro_torch.launch.characterize`` on the card at the
    reference example's sizes, with every probe kernel's launch count and
    every plain version's call count set to 0 just before and read just
@@ -139,6 +170,8 @@ QMM_REPLACES = "src/repro/kernels/qmatmul.py:76"
 QMMP_REPLACES = "src/repro/kernels/qmatmul.py:106"
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:71"
+FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:100"
 PROBE_SOURCES = {
     "dep_chain": ("src/repro_torch/csrc/probe_dep_chain.cu",
                   "src/repro/kernels/probe_dep_chain.py:40"),
@@ -147,7 +180,7 @@ PROBE_SOURCES = {
     "mma_probe": ("src/repro_torch/csrc/probe_mma.cu",
                   "src/repro/kernels/probe_mma.py:48")}
 SOURCES = ("flash_decode", "flash_decode_quant", "qmatmul", "probe_dep_chain",
-           "probe_chase", "probe_mma", "ssd_scan")
+           "probe_chase", "probe_mma", "ssd_scan", "flash_attention")
 FORMATS = ("float8_e4m3fn", "float8_e5m2", "float6_e2m3fn",
            "float6_e3m2fn", "float4_e2m1fn")
 TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
@@ -286,24 +319,25 @@ def check_qmm(case: str, got, want, k: int) -> float:
     return err
 
 
-def profile_block(eng, k: int, kernel_key: str):
-    """One fused decode block of ``k`` steps under ``torch.profiler``:
-    (device busy ms, ``kernel_key`` device ms, kernel launches, top
-    kernels by device time) from the CUDA kernel events."""
+def profile_fn(fn, kernel_key: str):
+    """``fn()`` under ``torch.profiler``: (device busy ms, ``kernel_key``
+    device ms, kernel launches, top kernels by device time, ``kernel_key``
+    launches) from the CUDA kernel events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.decode_loop(k)
+        fn()
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    kt = sum(e.self_device_time_total for e in kern
-             if kernel_key in e.key) / 1e3
+    mine = [e for e in kern if kernel_key in e.key]
+    kt = sum(e.self_device_time_total for e in mine) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     return busy, kt, sum(e.count for e in kern), [
-        (e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top]
+        (e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top
+    ], sum(e.count for e in mine)
 
 
 # --------------------------------------------------------------------- #
@@ -860,6 +894,126 @@ def phase1e_ssd_scan(model):
     return entries
 
 
+def fa_case(seed, b, sq, skv, hq, hkv, d, dtype):
+    """q (b, sq, hq, d), k / v (b, skv, hkv, d), N(0, 1), on the card."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, np.float32)).to("cuda", dtype)
+
+    return t((b, sq, hq, d)), t((b, skv, hkv, d)), t((b, skv, hkv, d))
+
+
+def fa_visible(sq, skv, causal=True, window=None, q_offset=0, **_):
+    """(rows that see a key (sq,) bool on the card, visible (query, key)
+    pairs per (row of the batch, head))."""
+    qp = q_offset + torch.arange(sq, device="cuda")[:, None]
+    kp = torch.arange(skv, device="cuda")[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device="cuda")
+    if causal:
+        ok &= qp >= kp
+    if window is not None:
+        ok &= qp - kp < window
+    return ok.any(dim=1), int(ok.sum())
+
+
+def phase1f_flash_attention(model):
+    """``flash_attention`` against ``flash_attention_plain`` on the card
+    (tolerances of the reference's kernel test: fp32 atol 2e-5, bf16 atol
+    2e-2, on the rows that see a key; a row that sees none must be 0),
+    then the times at (a) and (b): kernel, plain version and SDPA with
+    ``is_causal`` (a yardstick; the port never calls it)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    hbm, peak_bf16 = model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"]
+    peak_f32 = model.vector_flops["float32"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    gptneox = dict(b=8, sq=2048, skv=2048, hq=16, hkv=16, d=128)
+    cases = {
+        "a_gptneox_bf16": (dict(gptneox, seed=51, dtype=bf16), {}),
+        "b_gptneox_fp32": (dict(gptneox, seed=52, dtype=f32), {}),
+        "c_gqa_32_8_d64": (dict(seed=53, b=4, sq=384, skv=1000, hq=32,
+                                hkv=8, d=64, dtype=bf16), {}),
+        "d_window256_softcap50": (dict(gptneox, seed=54, b=2, dtype=bf16),
+                                  dict(window=256, softcap=50.0)),
+        "e_non_causal": (dict(seed=55, b=4, sq=1024, skv=1024, hq=16,
+                              hkv=16, d=128, dtype=bf16),
+                         dict(causal=False)),
+        "f_ragged_sq96_skv130": (dict(seed=56, b=4, sq=96, skv=130, hq=16,
+                                      hkv=16, d=128, dtype=bf16), {}),
+        "g_q_offset512": (dict(seed=57, b=4, sq=128, skv=640, hq=16, hkv=16,
+                               d=128, dtype=bf16), dict(q_offset=512)),
+        "h_d256": (dict(seed=58, b=2, sq=1024, skv=1024, hq=8, hkv=4, d=256,
+                        dtype=bf16), {}),
+    }
+    errors = {}
+    for case, (spec, flags) in cases.items():
+        q, k, v = fa_case(**spec)
+        got = flash_attention(q, k, v, **flags)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, **flags)
+        torch.cuda.synchronize()
+        rows, _ = fa_visible(spec["sq"], spec["skv"], **flags)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash_attention {case}: not finite")
+        if (got[:, ~rows] != 0).any():
+            raise AssertionError(f"flash_attention {case}: a row that sees "
+                                 f"no key is not 0")
+        atol = 2e-5 if q.dtype == f32 else 2e-2
+        err = (got[:, rows].float() - want[:, rows].float()).abs().max()
+        errors[case] = err.item()
+        log(f"[kernel] flash_attention {case}: max_abs_err "
+            f"{errors[case]:.3e} over {int(rows.sum())}/{len(rows)} rows "
+            f"(tol atol {atol})")
+        torch.testing.assert_close(got[:, rows].float(),
+                                   want[:, rows].float(), atol=atol,
+                                   rtol=0.0)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    entries = []
+    for case, peak, peak_name in (("a_gptneox_bf16", peak_bf16, "bf16"),
+                                  ("b_gptneox_fp32", peak_f32, "fp32")):
+        spec = cases[case][0]
+        base = fa_case(**spec)
+        sets = [base] + [fa_case(**dict(spec, seed=spec["seed"] + 100 + i))
+                         for i in range(n_sets(nbytes(*base)) - 1)]
+
+        def kern(q, k, v):
+            return flash_attention(q, k, v)
+
+        ms = time_ms(kern, sets)
+        plain_ms = time_ms(flash_attention_plain, sets[:2], reps=5, n=2)
+        sdpa_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
+                     for s in sets]
+        library_ms = time_ms(
+            lambda qt, kt, vt: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), sdpa_sets)
+        del sdpa_sets
+        q = base[0]
+        _, pairs = fa_visible(spec["sq"], spec["skv"])
+        moved = nbytes(*base) + nbytes(q)          # q, k, v in; out
+        flops = 4 * spec["d"] * pairs * spec["b"] * spec["hq"]
+        bound_ms, bound_by = bound(moved, flops, hbm, peak)
+        log(f"[kernel] flash_attention {case} timing: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"sdpa is_causal {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {moved} B at {hbm / 1e12:g} TB/s, {flops} flop "
+            f"at {peak_name} {peak / 1e12:g} TFLOP/s); {len(sets)} input "
+            f"sets")
+        entries.append({
+            "name": f"flash_attention[{case},b{spec['b']}_s{spec['sq']}_hq"
+                    f"{spec['hq']}_d{spec['d']}_causal]",
+            "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
+            "launches": None, "max_abs_err": errors[case], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
+        del sets, base, q
+        torch.cuda.empty_cache()
+    return entries
+
+
 def serve(eng, prompts, counter, expected, label: str) -> dict:
     """Warm up, then serve ``prompts`` x 64 new tokens with the launch
     count of ``counter`` (a kernel wrapper) set to 0 just before and read
@@ -913,7 +1067,8 @@ def serve(eng, prompts, counter, expected, label: str) -> dict:
     for p in prompts:
         eng.submit(p, max_new_tokens=40)
     eng.decode_loop(16)                        # admission + first block
-    busy, kt, n_kern, top = profile_block(eng, 16, counter.__name__)
+    busy, kt, n_kern, top, _ = profile_fn(lambda: eng.decode_loop(16),
+                                          counter.__name__)
     log(f"[{label}] profiled 16-step decode block: device busy "
         f"{busy / 16:.3f} ms per step ({n_kern / 16:.0f} kernels) against "
         f"{out['step_ms']:.2f} ms per step unprofiled: idle share "
@@ -1083,6 +1238,181 @@ def phase2d_mamba2(prompts):
     return out
 
 
+def _timed(fn):
+    """(result, wall seconds) of ``fn()`` ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase2e_whole_sequence(hbm, peak_bf16):
+    """The whole-sequence path at full width, bf16, seeded weights:
+    gptneox-1b ``Model.forward`` on 8 x 2048 tokens, ``Model.prefill`` of
+    the same prompts (max_seq 2112), then 64 greedy ``Model.decode_step``
+    calls; mamba2-2.7b ``Model.prefill`` on 8 x 2048 tokens, then 16
+    greedy decode steps.  Counts set to 0 just before each call and read
+    just after: ``flash_attention`` 16 launches per forward and per
+    prefill, its plain version never; ``flash_decode`` 16 per decode
+    step; ``ssd_scan`` 64 per mamba2 prefill (one per layer, the 8 chunks
+    carried inside the kernel), its plain version never.  Prefill's last
+    logits must match forward's at position 2047 within atol 1e-3: the
+    same bf16 activations, only the fp32 unembed's summation order
+    differs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.models.model import build_model
+    b, s, new = 8, 2048, 64
+    cfg = get_config("gptneox-1b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
+    batch = {"tokens": tokens}
+    model.forward(params, {"tokens": tokens[:, :256]})          # warm-up
+    model.prefill(params, {"tokens": tokens[:, :256]}, 320)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def zero():
+        flash_attention.launches = flash_attention_plain.calls = 0
+        flash_decode.launches = 0
+
+    def counts():
+        return (flash_attention.launches, flash_attention_plain.calls,
+                flash_decode.launches)
+
+    def expect(label, got, want):
+        if got != want:
+            raise AssertionError(f"{label}: (flash_attention launches, "
+                                 f"plain calls, flash_decode launches) "
+                                 f"{got}, expected {want}")
+
+    L = cfg.n_layers
+    zero()
+    (logits, aux), fwd_s = _timed(lambda: model.forward(params, batch))
+    expect("forward", counts(), (L, 0, 0))
+    if logits.shape != (b, s, cfg.vocab_size) or not torch.isfinite(
+            logits).all() or set(aux) != {"moe_lb_loss", "moe_z_loss",
+                                         "moe_dropped"}:
+        raise AssertionError(f"forward: logits {tuple(logits.shape)} not "
+                             f"finite or aux {sorted(aux)}")
+    last = logits[:, -1].clone()
+    del logits
+    zero()
+    (pre, cache), pre_s = _timed(lambda: model.prefill(params, batch,
+                                                       s + new))
+    expect("prefill", counts(), (L, 0, 0))
+    err = (pre - last).abs().max().item()
+    log(f"[whole-seq] gptneox-1b prefill logits against forward's at "
+        f"position {s - 1}: max_abs_err {err:.3e} (tol atol 1e-3; |logit| "
+        f"max {last.abs().max().item():.2f})")
+    torch.testing.assert_close(pre, last, atol=1e-3, rtol=0.0)
+
+    def decode():
+        tok, stream = pre.argmax(-1), []
+        for i in range(new):
+            stream.append(tok)
+            pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+            lg = model.decode_step(params, cache, tok, pos)
+            tok = lg.argmax(-1)
+        return lg, torch.stack(stream, 1)
+
+    zero()
+    (lg, stream), dec_s = _timed(decode)
+    expect("decode", counts(), (0, 0, L * new))
+    if not torch.isfinite(lg).all() or not (
+            (stream >= 0) & (stream < cfg.vocab_size)).all():
+        raise AssertionError("decode: logits not finite or token ids out "
+                             "of range")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kv_bytes = model.kv_cache_stats(cache)["kv_bytes"]
+    del cache, pre, lg
+    # device time, one more call of each under the profiler
+    fwd = profile_fn(lambda: model.forward(params, batch), "flash_attention")
+    pre_p = profile_fn(lambda: model.prefill(params, batch, s + new),
+                       "flash_attention")
+    out = {"launches": 2 * L, "forward_s": fwd_s, "prefill_s": pre_s,
+           "prefill_tok_s": b * s / pre_s, "decode_step_ms":
+           1e3 * dec_s / new, "peak_gib": peak,
+           "forward_busy_ms": fwd[0], "prefill_busy_ms": pre_p[0],
+           "fa_ms_per_call": pre_p[1] / max(pre_p[4], 1)}
+    log(f"[whole-seq] gptneox-1b {b} x {s}: forward {fwd_s:.3f} s wall, "
+        f"{fwd[0]:.2f} ms device busy ({fwd[2]} kernels); prefill "
+        f"{pre_s:.3f} s wall ({out['prefill_tok_s']:.0f} tok/s), "
+        f"{pre_p[0]:.2f} ms device busy; {new} greedy decode steps "
+        f"{out['decode_step_ms']:.2f} ms per step; peak memory {peak:.2f} "
+        f"GiB (KV pool {kv_bytes} B); launches per call: flash_attention "
+        f"{L}, plain 0; flash_decode {L} per step")
+    log(f"[whole-seq] flash_attention in the profiled prefill: "
+        f"{pre_p[4]} launches, {out['fa_ms_per_call']:.4f} ms device per "
+        f"call ({pre_p[1] / pre_p[0]:.3f} of device time); in the forward "
+        f"{fwd[1] / max(fwd[4], 1):.4f} ms per call")
+    for key, count, t in pre_p[3]:
+        log(f"[whole-seq]   prefill {t:9.3f} ms  x{count:<5d} {key}")
+    del model, params, tokens, batch
+    torch.cuda.empty_cache()
+
+    # mamba2-2.7b: prefill through ssd_scan, then the plain recurrence
+    new_m = 16
+    cfg = get_config("mamba2-2.7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
+    model.prefill(params, {"tokens": tokens[:, :256]}, 320)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.launches = ssd_scan_plain.calls = 0
+    (pre, cache), pre_s = _timed(lambda: model.prefill(
+        params, {"tokens": tokens}, s + new_m))
+    if (ssd_scan.launches, ssd_scan_plain.calls) != (cfg.n_layers, 0):
+        raise AssertionError(f"mamba2 prefill: ssd_scan launches "
+                             f"{ssd_scan.launches}, plain calls "
+                             f"{ssd_scan_plain.calls}; expected "
+                             f"{cfg.n_layers}, 0")
+
+    def decode_m():
+        tok = pre.argmax(-1)
+        for i in range(new_m):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+            lg = model.decode_step(params, cache, tok, pos)
+            tok = lg.argmax(-1)
+        return lg
+
+    ssd_scan.launches = 0
+    lg, dec_s = _timed(decode_m)
+    if ssd_scan.launches or ssd_scan_plain.calls or not (
+            torch.isfinite(pre).all() and torch.isfinite(lg).all()):
+        raise AssertionError("mamba2 decode: ssd_scan ran, or logits not "
+                             "finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del cache, pre, lg
+    prof = profile_fn(lambda: model.prefill(params, {"tokens": tokens},
+                                            s + new_m), "ssd_scan")
+    out.update(mamba2_prefill_s=pre_s, mamba2_prefill_tok_s=b * s / pre_s,
+               mamba2_decode_step_ms=1e3 * dec_s / new_m,
+               mamba2_peak_gib=peak, mamba2_prefill_busy_ms=prof[0],
+               ssd_launches=cfg.n_layers)
+    log(f"[whole-seq] mamba2-2.7b {b} x {s}: prefill {pre_s:.3f} s wall "
+        f"({b * s / pre_s:.0f} tok/s), {prof[0]:.2f} ms device busy "
+        f"({prof[2]} kernels; ssd_scan {prof[4]} launches, "
+        f"{prof[1] / max(prof[4], 1):.4f} ms per call); {new_m} greedy "
+        f"decode steps {out['mamba2_decode_step_ms']:.2f} ms per step; "
+        f"peak memory {peak:.2f} GiB; ssd_scan launches {cfg.n_layers} "
+        f"(one per layer), plain SSD calls 0")
+    for key, count, t in prof[3]:
+        log(f"[whole-seq]   mamba2 prefill {t:9.3f} ms  x{count:<5d} {key}")
+    del model, params, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
 class _Recording:
     """A model whose decode steps keep their logits (for diagnosis)."""
 
@@ -1234,6 +1564,135 @@ def phase3c_mamba2_parity():
     _check_parity("parity mamba2 fp32 2-layer full width", runs)
 
 
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _greedy(model, params, logits, cache, s: int, n: int):
+    """``n`` greedy decode steps after a prefill of ``s`` tokens: (the
+    stream of n + 1 tokens (b, n + 1), the logits of every step on the
+    CPU (n, b, vocab))."""
+    tok, stream, seen = logits.argmax(-1), [], []
+    for i in range(n):
+        stream.append(tok)
+        pos = torch.full(tok.shape, s + i, dtype=torch.int32,
+                         device=tok.device)
+        lg = model.decode_step(params, cache, tok, pos)
+        seen.append(lg.cpu())
+        tok = lg.argmax(-1)
+    stream.append(tok)
+    return torch.stack(stream, 1).cpu(), torch.stack(seen)
+
+
+def phase3d_whole_sequence_parity():
+    """The whole-sequence path on the card and on the CPU, fp32, TF32 off,
+    full width cut to 2 layers, the same seeded weights (the analog of
+    ``tests/test_decode_consistency.py`` on the card).  gptneox-1b: 2 x
+    300-token prompts, ``attn_chunk`` 1024 (the CPU's plain version takes
+    ``full_attention``): prefill, 16 greedy decode steps, then forward
+    over prompt + the first 16 tokens.  Streams identical; forward and
+    prefill logits card vs CPU within atol 1e-3, the prefill cache's K/V
+    within 1e-4; the card's decode (and prefill) logits against its own
+    forward's within 5e-4.  mamba2-2.7b: prompts of 300 and 600 tokens,
+    each prefilled alone, then 16 greedy steps: streams identical,
+    prefill logits and the SSM carries and state (``ssm_forward``'s
+    return_state) within atol 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = 16
+    cfg = dataclasses.replace(get_config("gptneox-1b"), n_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    prompts = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 300)))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        flash_attention.launches = flash_attention_plain.calls = 0
+        logits, cache = model.prefill(p, {"tokens": prompts.to(dev)}, 320)
+        # a copy on both devices: decode then writes into the cache
+        kv = {name: cache["pos0"]["kv"][name].to("cpu", copy=True)
+              for name in ("k", "v")}
+        stream, steps = _greedy(model, p, logits, cache, 300, n)
+        full, _ = model.forward(p, {"tokens": torch.cat(
+            [prompts, stream[:, :n]], 1).to(dev)})
+        counts = (flash_attention.launches, flash_attention_plain.calls)
+        want = (2 * cfg.n_layers, 0) if dev == "cuda" else (
+            0, 2 * cfg.n_layers)
+        if counts != want:
+            raise AssertionError(f"parity gptneox {dev}: (flash_attention "
+                                 f"launches, plain calls) {counts}, "
+                                 f"expected {want}")
+        runs[dev] = (logits.cpu(), kv, stream, steps, full.cpu())
+        del p, cache, full
+    (lc, kvc, sc, stc, fc), (lh, kvh, sh, _, fh) = runs["cuda"], runs["cpu"]
+    label = "parity whole-seq gptneox fp32 2-layer full width"
+    if not torch.equal(sc, sh):
+        raise AssertionError(f"{label}: card vs CPU greedy streams differ: "
+                             f"{sc.tolist()} vs {sh.tolist()}")
+    errs = {"forward": (fc - fh).abs().max().item(),
+            "prefill": (lc - lh).abs().max().item(),
+            "cache_kv": max((kvc[x] - kvh[x]).abs().max().item()
+                            for x in kvc),
+            "decode_vs_forward": max(
+                (stc - fc[:, 300:300 + n].transpose(0, 1)).abs().max(),
+                (lc - fc[:, 299]).abs().max()).item()}
+    log(f"[{label}] streams identical ({sc.shape[1]} tokens x 2); "
+        f"max_abs_err card vs CPU: forward {errs['forward']:.3e}, prefill "
+        f"{errs['prefill']:.3e} (tol 1e-3), cache K/V {errs['cache_kv']:.3e}"
+        f" (tol 1e-4); card decode vs card forward "
+        f"{errs['decode_vs_forward']:.3e} (tol 5e-4)")
+    for key, tol in (("forward", 1e-3), ("prefill", 1e-3),
+                     ("cache_kv", 1e-4), ("decode_vs_forward", 5e-4)):
+        if not errs[key] <= tol:
+            raise AssertionError(f"{label}: {key} max_abs_err "
+                                 f"{errs[key]:.3e} above {tol}")
+    del runs, params, model
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), n_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(9)
+    label = "parity whole-seq mamba2 fp32 2-layer full width"
+    for s in (300, 600):
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s)))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            p = _to(params, dev)
+            before = ssd_scan.launches
+            logits, cache = model.prefill(p, {"tokens": prompt.to(dev)},
+                                          s + n)
+            launched = ssd_scan.launches - before
+            if launched != (cfg.n_layers if dev == "cuda" else 0):
+                raise AssertionError(f"{label}: ssd_scan launched "
+                                     f"{launched} times on {dev}")
+            state = {k: v.to("cpu", copy=True)
+                     for k, v in cache["pos0"]["ssm"].items()}
+            stream, _ = _greedy(model, p, logits, cache, s, n)
+            runs[dev] = (logits.cpu(), state, stream)
+            del p, cache
+        (lc, stc, sc), (lh, sth, sh) = runs["cuda"], runs["cpu"]
+        if not torch.equal(sc, sh):
+            raise AssertionError(f"{label} s={s}: card vs CPU greedy "
+                                 f"streams differ")
+        lerr = (lc - lh).abs().max().item()
+        serr = max((stc[k] - sth[k]).abs().max().item() for k in stc)
+        log(f"[{label}] s={s}: streams identical ({sc.shape[1]} tokens); "
+            f"prefill logits max_abs_err {lerr:.3e}, carries and state "
+            f"{serr:.3e} (tol 1e-3); ssd_scan {cfg.n_layers} launches")
+        if not (lerr <= 1e-3 and serr <= 1e-3):
+            raise AssertionError(f"{label} s={s}: logits {lerr:.3e} or "
+                                 f"state {serr:.3e} above 1e-3")
+
+
 def phase4_characterize():
     """``repro_torch.launch.characterize`` at the reference example's
     sizes, the counters set to 0 just before and read just after; then a
@@ -1320,6 +1779,7 @@ def main() -> int:
     qmm_entries = phase1c_qmatmul(hbm, peak_bf16)
     probe_entries = phase1d_probes(model)
     ssd_entries = phase1e_ssd_scan(model)
+    fa_entries = phase1f_flash_attention(model)
 
     # ---- 2: full-width serving, then the GEMM path ------------------- #
     cfg = get_config("gptneox-1b")
@@ -1342,11 +1802,15 @@ def main() -> int:
                             for _ in range(8)])
     for e in ssd_entries:
         e["launches"] = mamba["launches"]
+    whole = phase2e_whole_sequence(hbm, peak_bf16)
+    for e in fa_entries:
+        e["launches"] = whole["launches"]
 
     # ---- 3: card vs CPU, fp32 ------------------------------------------ #
     model3, params3, prompts3 = phase3_parity(cfg)
     phase3b_quant_parity(model3, params3, prompts3)
     phase3c_mamba2_parity()
+    phase3d_whole_sequence_parity()
 
     # ---- 4: the probe suite -------------------------------------------- #
     counts = phase4_characterize()
@@ -1357,7 +1821,8 @@ def main() -> int:
     for line in smi.splitlines():                # again, near the end
         log(line)
     print(json.dumps({"kernels": [fd_entry, *fdq_entries, *qmm_entries,
-                                  *probe_entries, *ssd_entries]}))
+                                  *probe_entries, *ssd_entries,
+                                  *fa_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,6 +7,9 @@ tile.  The CUDA kernels read the model layout through its strides and
 mask ragged edges themselves, so each entry point here is its kernel's
 wrapper:
 
+* :func:`flash_attention`: whole-sequence attention, q (b, sq, hq, d),
+  k / v (b, skv, hkv, d) -> (b, sq, hq, d), causal or not, with an
+  optional window, softcap, scale and ``q_offset``;
 * :func:`flash_decode`: q (b, 1, hq, d), dense cache (b, S, hkv, d),
   slot_pos (b, S), pos (b,) -> (b, 1, hq, d);
 * :func:`flash_decode_quant`: the same over a quantized cache dict
@@ -27,6 +30,8 @@ wrapper:
 Launch counts are ``<wrapper>.launches``.
 """
 
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention)
 from repro_torch.kernels.flash_decode import flash_decode  # noqa: F401
 from repro_torch.kernels.flash_decode_quant import (  # noqa: F401
     flash_decode_quant)

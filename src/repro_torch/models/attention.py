@@ -1,6 +1,8 @@
 """Attention: projections, grouped-query softmax attention against a ring
-KV cache, and the cache write paths (counterpart of
-``repro.models.attention``).
+KV cache, whole-sequence attention (``full_attention``,
+``chunked_attention`` and the ``attention()`` dispatch: the plain
+version of the ``flash_attention`` kernel), and the cache write paths
+(counterpart of ``repro.models.attention``).
 
 The cache layout is the reference's: ``k``/``v`` (b, S, hkv, d) at the
 cache dtype plus ``slot_pos`` (b, S) int32, the absolute position each
@@ -24,6 +26,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import compat, lowbits
 from repro_torch.models import layers
@@ -142,6 +145,117 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """One-token attention (sq=1 :func:`cache_attention`); pos: (b,)."""
     return cache_attention(q, k_cache, v_cache, slot_pos, pos[:, None],
                            window=window, softcap=softcap, scale=scale)
+
+
+# --------------------------------------------------------------------- #
+# Whole-sequence attention (the plain version of the flash_attention
+# kernel: kernels.flash_attention runs it for CPU tensors)
+# --------------------------------------------------------------------- #
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    """Additive fp32 bias (sq, sk): 0 where visible, -1e30 elsewhere."""
+    ok = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        ok &= q_pos[:, None] - k_pos[None, :] < window
+    return torch.zeros(ok.shape, dtype=torch.float32,
+                       device=ok.device).masked_fill(~ok, NEG_INF)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: Optional[int] = None,
+                   softcap: Optional[float] = None,
+                   scale: Optional[float] = None,
+                   q_positions: Optional[torch.Tensor] = None,
+                   k_positions: Optional[torch.Tensor] = None,
+                   k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """O(sq * sk)-memory attention.  q (b, sq, hq, d), k / v (b, sk, hkv,
+    d) -> (b, sq, hq, d) at q's dtype.  Positions default to
+    ``arange``; ``k_valid`` (b, sk) bool masks per-row key padding.  A
+    row with no visible key gets the mean of V (softmax of equal
+    -1e30 scores), as in the reference."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = _scores(_group(q, hkv), k, scale, softcap)         # (b,h,g,sq,sk)
+    q_pos = (torch.arange(sq, device=q.device) if q_positions is None
+             else q_positions)
+    k_pos = (torch.arange(sk, device=q.device) if k_positions is None
+             else k_positions)
+    s = s + _mask_bias(q_pos, k_pos, causal, window)
+    if k_valid is not None:
+        s = torch.where(k_valid[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      scale: Optional[float] = None, chunk: int = 1024,
+                      k_valid: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Online softmax over KV chunks of ``chunk`` keys: O(sq * chunk)
+    live scores.  The KV axis is padded to the chunk and the padding
+    masked.  fp32 m / l / acc; ``p`` is cast to v's dtype before PV; a
+    row with no visible key gets the mean of V, as in
+    :func:`full_attention`."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    pad = (-sk) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        if k_valid is not None:
+            k_valid = F.pad(k_valid, (0, pad), value=False)
+    if k_valid is None:
+        k_valid = torch.ones((b, sk + pad), dtype=torch.bool,
+                             device=q.device)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = _group(q, hkv)                                    # (b,sq,h,g,d)
+    q_pos = torch.arange(sq, device=q.device)
+    f32 = torch.float32
+    m = torch.full((b, hkv, hq // hkv, sq), NEG_INF, dtype=f32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((*m.shape, d), dtype=f32, device=q.device)
+    for c0 in range(0, sk + pad, chunk):
+        k_i, v_i = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        k_pos = c0 + torch.arange(chunk, device=q.device)
+        s = _scores(qg, k_i, scale, softcap)               # (b,h,g,sq,c)
+        bias = _mask_bias(q_pos, k_pos, causal, window)
+        s = s + bias.masked_fill(~(k_pos < sk)[None, :], NEG_INF)
+        s = torch.where(k_valid[:, None, None, None, c0:c0 + chunk], s,
+                        NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(v_i.dtype).float(), v_i.float())
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    o = (acc / l[..., None]).permute(0, 3, 1, 2, 4)       # (b,sq,h,g,d)
+    return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None,
+              scale: Optional[float] = None, chunk: int = 1024,
+              k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dispatch: :func:`chunked_attention` when the KV axis is longer
+    than ``chunk``, else :func:`full_attention`."""
+    if k.shape[1] <= chunk:
+        return full_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, scale=scale, k_valid=k_valid)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale, chunk=chunk,
+                             k_valid=k_valid)
 
 
 # --------------------------------------------------------------------- #
@@ -308,4 +422,25 @@ def cache_write_chunk(cache: dict, k: torch.Tensor, v: torch.Tensor,
     for name, new in _payload(cache, k, v, kv_format).items():
         pool = _raw(cache[name])
         pool[:, slots] = mask_rows(vmask, _raw(new), pool[:, slots])
+    return cache
+
+
+def cache_write_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                        kv_format: Optional[str] = None) -> dict:
+    """Bulk-write a whole prompt's K/V (b, s, hkv, d), positions 0..s-1,
+    into the (ring) cache, in place.  Keeps the last ``capacity``
+    positions at slots ``p % capacity`` (distinct, so the scatter is a
+    permutation); a quantized cache encodes the kept span on the way
+    in."""
+    sp = cache["slot_pos"]
+    b, cap = sp.shape
+    s = k.shape[1]
+    take = min(s, cap)
+    positions = torch.arange(s - take, s, dtype=torch.int32,
+                             device=sp.device)
+    slots = (positions % cap).long()
+    sp[:, slots] = positions.expand(b, take)
+    for name, new in _payload(cache, k[:, s - take:], v[:, s - take:],
+                              kv_format).items():
+        _raw(cache[name])[:, slots] = _raw(new)
     return cache

@@ -4,7 +4,7 @@ returns a :class:`Model` whose methods close over the config."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -19,6 +19,24 @@ class Model:
     # -- parameters -------------------------------------------------- #
     def init(self, generator: torch.Generator, device) -> dict:
         return tf.init_lm(self.cfg, generator, device)
+
+    # -- execution modes: whole sequence, then decode ----------------- #
+    def forward(self, params: dict, batch: Dict[str, torch.Tensor]):
+        """(logits (b, s, vocab) fp32, aux) of ``batch["tokens"]``."""
+        return tf.lm_forward(params, batch, self.cfg)
+
+    def features(self, params: dict, batch: Dict[str, torch.Tensor]):
+        """(features (b, s, d_model) after the final norm, aux)."""
+        return tf.lm_features(params, batch, self.cfg)
+
+    def unembed_weight(self, params: dict) -> torch.Tensor:
+        return tf.unembed_weight(params, self.cfg)
+
+    def prefill(self, params: dict, batch: Dict[str, torch.Tensor],
+                max_seq: int):
+        """(last-position logits (b, vocab) fp32, cache): whole-prompt
+        prefill into a fresh pooled cache, for :meth:`decode_step`."""
+        return tf.lm_prefill(params, batch, self.cfg, max_seq)
 
     # -- serving hot path (fused loop / chunked pooled prefill) ------- #
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor,

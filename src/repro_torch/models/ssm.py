@@ -1,5 +1,6 @@
-"""Mamba-2 SSD (state-space duality) block for serving (counterpart of
-``repro.models.ssm``): parameters, the chunked SSD core, chunked pooled
+"""Mamba-2 SSD (state-space duality) block (counterpart of
+``repro.models.ssm``): parameters, the chunked SSD core, the
+whole-sequence block (scoring and whole-prompt prefill), chunked pooled
 prefill with carried state, and the one-token decode recurrence.
 
 Layout as in the reference: x (b, s, h, p) heads x head_dim; B, C
@@ -8,8 +9,9 @@ The projections are kept separate (wz / wx / wb / wc / wdt and three
 depthwise convs), so the bridge carries the reference's tree as it is.
 
 :func:`ssd_chunked` is the plain version of the SSD kernel, in the
-reference's arithmetic order; :func:`ssm_prefill_chunk` runs its chunk
-through ``kernels.ssd_scan``, which takes this plain version for CPU
+reference's arithmetic order; :func:`ssm_forward` and
+:func:`ssm_prefill_chunk` run their SSD core through
+``kernels.ssd_scan``, which takes this plain version for CPU
 tensors and launches the hand-written CUDA kernel for CUDA tensors.
 Decode (:func:`ssm_decode`) is the O(1)-state recurrence in plain torch;
 the reference has no kernel there either.
@@ -206,6 +208,38 @@ def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, device,
             "conv_c": z(k1, cfg.ssm_state),
             "state": z(cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
                        dt=torch.float32)}
+
+
+def ssm_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                return_state: bool = False):
+    """Whole-sequence SSD block.  x (bt, s, d_model) -> out of the same
+    shape; the SSD core runs through ``kernels.ssd_scan`` with chunk
+    ``min(cfg.ssm_chunk, s)`` (the kernel carries the state over the
+    chunks; s is padded to the chunk with an identity tail).  With
+    ``return_state`` also the cache entry the sequence leaves: the conv
+    carries (the last k-1 raw inputs, zero-padded on the left when s <
+    k-1) at x's dtype and the fp32 final state."""
+    bt, s, _ = x.shape
+    h, pd = cfg.ssm_heads, cfg.ssm_head_dim
+    z, xr, br, cr, dt_raw = _project(p, x)
+    xh = F.silu(causal_conv1d(xr, p["conv_x_w"], p["conv_x_b"]))
+    b_ = F.silu(causal_conv1d(br, p["conv_b_w"], p["conv_b_b"]))
+    c_ = F.silu(causal_conv1d(cr, p["conv_c_w"], p["conv_c_b"]))
+    xh = xh.reshape(bt, s, h, pd)
+    dt, dt_a = _discretize(p, dt_raw)
+    y, state = ssd_scan(xh * dt[..., None], dt_a, b_, c_,
+                        chunk=min(cfg.ssm_chunk, s))
+    out = _gated_out(p, y, xh, z, x.dtype, cfg)
+    if not return_state:
+        return out
+    k1 = cfg.ssm_conv - 1
+
+    def tail(r):
+        return F.pad(r[:, s - min(s, k1):], (0, 0, max(0, k1 - s), 0)
+                     ).to(x.dtype)
+
+    return out, {"conv_x": tail(xr), "conv_b": tail(br), "conv_c": tail(cr),
+                 "state": state}
 
 
 def ssm_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,

@@ -1,6 +1,7 @@
-"""Model assembly for serving: parameter tree, pooled cache, chunked
-prefill and the decode step (counterpart of ``repro.models.transformer``,
-attention mixer + dense FFN, and the SSM mixer with no FFN: mamba2).
+"""Model assembly: parameter tree, the whole-sequence forward (scoring)
+and whole-prompt prefill, pooled cache, chunked prefill and the decode
+step (counterpart of ``repro.models.transformer``, attention mixer +
+dense FFN, and the SSM mixer with no FFN: mamba2).
 
 The reference scans over the period axis with ``lax.scan``; here a Python
 loop walks the layers, and each layer reads its slice ``leaf[l]`` of the
@@ -14,23 +15,34 @@ where the reference calls the XLA ``decode_attention``:
 which reads the packed codes and e8m0 scales and expands them on the way
 in, where the reference dequantizes the whole cache each step
 (``cache_kv``).  Chunked prefill keeps plain ``cache_attention`` over the
-dequantized history, which has no kernel in the reference either.
+dequantized history, which has no kernel in the reference either.  Every
+self-attention over a whole sequence (:func:`lm_forward`,
+:func:`lm_features`, :func:`lm_prefill`) goes through the hand-written
+CUDA ``kernels.flash_attention``, where the reference calls the XLA
+``attention()``; its plain version is that dispatch, with the config's
+``attn_chunk``.
 
 An SSM layer (``models.ssm``) keeps its conv carries and fp32 state in
-the cache entry's ``ssm`` part.  Its chunked prefill runs the SSD core
-through the hand-written CUDA ``kernels.ssd_scan``, where the reference
-runs the XLA ``ssd_chunked``; its decode step is the one-token
-recurrence in plain torch, as in the reference.
+the cache entry's ``ssm`` part.  Its whole-sequence block and its
+chunked prefill run the SSD core through the hand-written CUDA
+``kernels.ssd_scan``, where the reference runs the XLA ``ssd_chunked``;
+its decode step is the one-token recurrence in plain torch, as in the
+reference.
+
+:func:`lm_prefill` writes the prompt's K/V (or the SSM carries and
+state) into a fresh pooled cache from :func:`init_cache`, so
+:func:`lm_decode_step` continues from it unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.compat import resolve_dtype
 from repro_torch.configs.base import ArchConfig, BlockSpec
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_decode_quant import flash_decode_quant
 from repro_torch.models import attention as attn
@@ -54,6 +66,9 @@ def _check_block(cfg: ArchConfig, blk: BlockSpec) -> None:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and VLM models arrive with "
             f"their slice")
+
+
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_dropped")
 
 
 def _at(tree: dict, layer: int) -> dict:
@@ -103,6 +118,111 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
 
 def unembed_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+# --------------------------------------------------------------------- #
+# Whole-sequence forward (scoring) and whole-prompt prefill
+# --------------------------------------------------------------------- #
+
+def _self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                    blk: BlockSpec
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """Causal self-attention over the whole sequence x (b, s, d_model),
+    positions 0..s-1: (out (b, s, d_model), (k, v) after RoPE).  GQA
+    runs through the kernel's head index; the reference's
+    ``attn_repeat_kv`` copy of K/V gives the same values and is not
+    made."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    q = attn.project_q(p, x)
+    k, v = attn.project_kv(p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=True, window=blk.window,
+                        softcap=cfg.attn_logit_softcap, chunk=cfg.attn_chunk)
+    return attn.project_out(p, o), (k, v)
+
+
+def apply_block(p: dict, blk: BlockSpec, cfg: ArchConfig, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, dict]:
+    """One block over the whole sequence: (x, aux).  The ported blocks
+    (attention + dense FFN, SSM) have no aux losses: aux is {}."""
+    _check_block(cfg, blk)
+    h = rms_norm(p["ln_mix"], x, cfg.norm_eps)
+    if blk.mixer == "ssm":
+        return x + ssm.ssm_forward(p["ssm"], h, cfg), {}
+    x = x + _self_attention(p["attn"], h, cfg, blk)[0]
+    h = rms_norm(p["ln_ffn"], x, cfg.norm_eps)
+    return x + apply_mlp(p["mlp"], h, cfg.mlp_variant), {}
+
+
+def trunk_inputs(params: dict, cfg: ArchConfig,
+                 batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, None]:
+    """Token embeddings (b, s, d_model) at the compute dtype, and no
+    encoder output: the VLM and encoder-decoder legs arrive with their
+    slice."""
+    if cfg.frontend or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder and VLM models arrive with "
+            f"their slice")
+    x = embed(params["embed"], batch["tokens"])
+    return x.to(resolve_dtype(cfg.compute_dtype)), None
+
+
+def lm_features(params: dict, batch: Dict[str, torch.Tensor],
+                cfg: ArchConfig) -> Tuple[torch.Tensor, dict]:
+    """Trunk output after the final norm, before unembedding: (features
+    (b, s, d_model) at the compute dtype, aux).  aux holds the
+    reference's keys at zero (no MoE layer is ported)."""
+    x, _ = trunk_inputs(params, cfg, batch)
+    for layer in range(cfg.n_periods):
+        for i, blk in enumerate(cfg.block_pattern()):
+            x, _ = apply_block(_at(params["layers"][f"pos{i}"], layer), blk,
+                               cfg, x)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return x, {k: torch.zeros((), dtype=torch.float32, device=x.device)
+               for k in AUX_KEYS}
+
+
+def lm_forward(params: dict, batch: Dict[str, torch.Tensor],
+               cfg: ArchConfig) -> Tuple[torch.Tensor, dict]:
+    """(logits (b, s, vocab) fp32, aux)."""
+    x, aux = lm_features(params, batch, cfg)
+    return unembed(unembed_weight(params, cfg), x,
+                   cfg.final_logit_softcap), aux
+
+
+def lm_prefill(params: dict, batch: Dict[str, torch.Tensor],
+               cfg: ArchConfig, max_seq: int
+               ) -> Tuple[torch.Tensor, dict]:
+    """Forward over whole prompts (b, s), building the cache: (logits at
+    the last position (b, vocab) fp32, cache).  The cache is a fresh
+    :func:`init_cache` pool on the embeddings' device holding positions
+    0..s-1 (the last ``capacity`` of them in a ring), quantized on the
+    way in under ``kv_format``; SSM layers hold the carries and state the
+    prompt leaves."""
+    x, _ = trunk_inputs(params, cfg, batch)
+    cache = init_cache(cfg, x.shape[0], max_seq, x.device)
+    for layer in range(cfg.n_periods):
+        for i, blk in enumerate(cfg.block_pattern()):
+            p = _at(params["layers"][f"pos{i}"], layer)
+            entry = _at(cache[f"pos{i}"], layer)
+            h = rms_norm(p["ln_mix"], x, cfg.norm_eps)
+            if blk.mixer == "ssm":
+                out, state = ssm.ssm_forward(p["ssm"], h, cfg,
+                                             return_state=True)
+                x = x + out
+                for name, t in state.items():
+                    entry["ssm"][name].copy_(t)
+                continue
+            out, (k, v) = _self_attention(p["attn"], h, cfg, blk)
+            x = x + out
+            attn.cache_write_prefill(entry["kv"], k, v,
+                                     kv_format=cfg.kv_format_for(i))
+            h = rms_norm(p["ln_ffn"], x, cfg.norm_eps)
+            x = x + apply_mlp(p["mlp"], h, cfg.mlp_variant)
+    return _final_logits(params, x[:, -1:], cfg), cache
 
 
 # --------------------------------------------------------------------- #

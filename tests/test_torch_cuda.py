@@ -25,7 +25,11 @@ plain version's multiply and add);
 atol 2e-4, the tolerance of the reference's own kernel test against its
 sequential oracle (``tests/test_kernels.py``); a bf16 y may also
 differ by one bf16 ulp (rtol 2^-7: both sides round their fp32 y to
-bf16).
+bf16).  ``flash_attention``, the tolerances of the reference's own
+kernel test (``tests/test_kernels.py``): fp32 atol 2e-5; bf16 atol 2e-2
+(the plain version rounds the normalized p to bf16 before PV, as the
+reference does, the kernel the running-max p; both accumulate in fp32),
+over the rows that see a key; a row that sees none must be 0.
 """
 
 import numpy as np
@@ -33,6 +37,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels import probe_chase as pc
 from repro_torch.kernels import probe_dep_chain as pdc
@@ -493,3 +499,131 @@ def test_mamba2_engine_card_matches_cpu(cuda):
         assert launched == ((3 + 1 + 1) * cfg.n_layers
                             if dev == "cuda" else 0)
     assert streams["cuda"] == streams["cpu"]
+
+
+# --------------------------------------------------------------------- #
+# flash_attention
+# --------------------------------------------------------------------- #
+
+def _fa_inputs(seed, b, sq, skv, hq, hkv, d, dtype):
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, np.float32)).to("cuda", dtype)
+
+    return t((b, sq, hq, d)), t((b, skv, hkv, d)), t((b, skv, hkv, d))
+
+
+def _fa_visible_rows(sq, skv, causal, window, q_offset):
+    """(sq,) bool: the query rows that see at least one key."""
+    qp = q_offset + torch.arange(sq)[:, None]
+    kp = torch.arange(skv)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        ok &= qp >= kp
+    if window is not None:
+        ok &= qp - kp < window
+    return ok.any(dim=1).cuda()
+
+
+def _check_fa(q, k, v, **flags):
+    before = (flash_attention.launches, flash_attention_plain.calls)
+    got = flash_attention(q, k, v, **flags)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_plain.calls) == (
+        before[0] + 1, before[1])
+    want = flash_attention_plain(q, k, v, **flags)
+    rows = _fa_visible_rows(q.shape[1], k.shape[1], flags.get("causal", True),
+                            flags.get("window"), flags.get("q_offset", 0))
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    atol = 2e-5 if q.dtype == F32 else 2e-2
+    torch.testing.assert_close(got[:, rows].float(), want[:, rows].float(),
+                               atol=atol, rtol=0.0)
+    assert (got[:, ~rows] == 0).all()
+
+
+FA_CASES = {
+    # chip_smoke.py phase 1f's cases
+    "a_gptneox_bf16": (dict(b=8, sq=2048, skv=2048, hq=16, hkv=16, d=128,
+                            dtype=BF16), {}),
+    "b_gptneox_fp32": (dict(b=8, sq=2048, skv=2048, hq=16, hkv=16, d=128,
+                            dtype=F32), {}),
+    "c_gqa_32_8_d64": (dict(b=2, sq=384, skv=1000, hq=32, hkv=8, d=64,
+                            dtype=BF16), {}),
+    "d_window_softcap": (dict(b=2, sq=1024, skv=1024, hq=8, hkv=8, d=128,
+                              dtype=BF16), dict(window=256, softcap=50.0)),
+    "e_non_causal": (dict(b=2, sq=500, skv=700, hq=8, hkv=4, d=128,
+                          dtype=BF16), dict(causal=False)),
+    "f_ragged": (dict(b=3, sq=96, skv=130, hq=4, hkv=2, d=128, dtype=BF16),
+                 {}),
+    "g_q_offset": (dict(b=2, sq=128, skv=640, hq=8, hkv=8, d=128,
+                        dtype=BF16), dict(q_offset=512)),
+    "h_d256": (dict(b=2, sq=300, skv=300, hq=4, hkv=2, d=256, dtype=BF16),
+               {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FA_CASES))
+def test_flash_attention_cases(cuda, case):
+    spec, flags = FA_CASES[case]
+    _check_fa(*_fa_inputs(len(case), **spec), **flags)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 64, 96, 128, 256])
+@pytest.mark.parametrize("flags", [
+    {}, dict(causal=False), dict(window=64), dict(window=40, softcap=20.0),
+    dict(q_offset=70, window=50), dict(q_offset=300, causal=False,
+                                       window=30)],
+    ids=["causal", "full", "window", "window_softcap", "offset_window",
+         "offset_noncausal_window_empty_rows"])
+def test_flash_attention_sweep(cuda, dtype, d, flags):
+    """Head dims padded inside the kernel (16, 96), every mask flag, and
+    rows that see no key (zeros from the kernel)."""
+    _check_fa(*_fa_inputs(d, 2, 150, 200, 4, 2, d, dtype), **flags)
+
+
+def test_flash_attention_strided_head_major(cuda):
+    """K/V stored (b, hkv, s, d) and handed over as (b, s, hkv, d)
+    views: the kernel reads the strides, no copy."""
+    q, k, v = _fa_inputs(9, 2, 200, 200, 8, 4, 64, BF16)
+    kh, vh = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (k, v))
+    assert kh.stride(1) == 64 and not kh.is_contiguous()
+    _check_fa(q, kh, vh)
+
+
+def test_flash_attention_gptneox_prefill_card_matches_cpu(cuda):
+    """gptneox-1b reduced, fp32, TF32 off: Model.prefill on the card
+    launches the kernel once per layer and gives the CPU's logits and
+    cache within 1e-4, then the same greedy stream."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("gptneox-1b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 70)))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = _tree_to(params, dev)
+        before = flash_attention.launches
+        logits, cache = model.prefill(p, {"tokens": tokens.to(dev)}, 96)
+        assert flash_attention.launches - before == (
+            cfg.n_layers if dev == "cuda" else 0)
+        stream, tok = [], logits.argmax(-1)
+        for i in range(8):
+            stream.append(tok.tolist())
+            pos = torch.full((2,), 70 + i, dtype=torch.int32, device=dev)
+            tok = model.decode_step(p, cache, tok, pos).argmax(-1)
+        runs[dev] = (logits.cpu(), cache["pos0"]["kv"]["k"].cpu(), stream)
+    torch.testing.assert_close(runs["cuda"][0], runs["cpu"][0], atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(runs["cuda"][1], runs["cpu"][1], atol=1e-4,
+                               rtol=1e-4)
+    assert runs["cuda"][2] == runs["cpu"][2]
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}

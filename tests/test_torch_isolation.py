@@ -15,6 +15,7 @@ import torch
 from repro_torch import compat
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_decode_quant as fdq
 from repro_torch.kernels import qmatmul as qm
@@ -222,3 +223,87 @@ def test_ssd_scan_refuses_other_devices_and_counts_plain_calls():
     assert y.shape == (1, 40, 2, 16) and st.shape == (1, 2, 16, 8)
     assert (kss.ssd_scan.launches, kss.ssd_scan_plain.calls) == (
         before[0], before[1] + 1)
+
+
+def _fa_inputs(device="cpu", dtype=torch.float32, d=16):
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 24, 4, d, generator=g).to(dtype)
+    k = torch.randn(2, 40, 2, d, generator=g).to(dtype)
+    return [t.to(device) for t in (q, k, k.clone())]
+
+
+def test_flash_attention_module_is_checked():
+    """The new modules are among the files the import check reads."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/kernels/flash_attention.py",
+            "src/repro_torch/models/attention.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/models/ssm.py",
+            "src/repro_torch/models/model.py"} <= names
+
+
+def test_flash_attention_kernel_path_without_library_raises(monkeypatch):
+    """The flash_attention kernel path with no compiler to build its
+    library raises; it does not fall back to the plain version, and
+    counts no launch and no plain call."""
+    monkeypatch.setattr(compat, "nvcc_path", lambda: None)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR / "absent")
+    before = (kfa.flash_attention.launches, kfa.flash_attention_plain.calls)
+    q, k, v = _fa_inputs()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kfa._kernel(q, k, v, True, None, None, 0.25, 0)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("flash_attention")
+    assert (kfa.flash_attention.launches,
+            kfa.flash_attention_plain.calls) == before
+
+
+def test_flash_attention_refuses_other_devices_and_counts_plain_calls():
+    """A meta tensor raises; a CPU tensor takes the plain version, which
+    counts a plain call and no launch."""
+    with pytest.raises(ValueError, match="cuda"):
+        kfa.flash_attention(*_fa_inputs("meta"))
+    before = (kfa.flash_attention.launches, kfa.flash_attention_plain.calls)
+    out = kfa.flash_attention(*_fa_inputs())
+    assert out.shape == (2, 24, 4, 16)
+    assert (kfa.flash_attention.launches,
+            kfa.flash_attention_plain.calls) == (before[0], before[1] + 1)
+
+
+@pytest.mark.parametrize("case,error", [
+    ("d_above_256", ValueError), ("bf16_d_not_multiple_of_8", ValueError),
+    ("float16", TypeError), ("mixed_dtypes", TypeError),
+    ("head_dim_not_unit_stride", ValueError),
+    ("row_stride_off_16_bytes", ValueError),
+    ("hq_not_multiple_of_hkv", ValueError), ("window_0", ValueError),
+    ("negative_q_offset", ValueError), ("batch_mismatch", ValueError)])
+def test_flash_attention_check_kernel_inputs_refuses(case, error):
+    """What the kernel does not take raises before any launch."""
+    window, q_offset = None, 0
+    q, k, v = _fa_inputs()
+    if case == "d_above_256":
+        q, k, v = _fa_inputs(d=264)
+    elif case == "bf16_d_not_multiple_of_8":
+        q, k, v = _fa_inputs(dtype=torch.bfloat16, d=12)
+    elif case == "float16":
+        q, k, v = _fa_inputs(dtype=torch.float16)
+    elif case == "mixed_dtypes":
+        k = k.to(torch.bfloat16)
+    elif case == "head_dim_not_unit_stride":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    elif case == "row_stride_off_16_bytes":
+        k = torch.randn(2, 40, 2, 18)[..., 1:17]
+    elif case == "hq_not_multiple_of_hkv":
+        k = torch.randn(2, 40, 3, 16)
+        v = k.clone()
+    elif case == "window_0":
+        window = 0
+    elif case == "negative_q_offset":
+        q_offset = -1
+    elif case == "batch_mismatch":
+        k, v = k[:1], v[:1]
+    with pytest.raises(error):
+        kfa.check_kernel_inputs(q, k, v, window, q_offset)
+    kfa.check_kernel_inputs(*_fa_inputs(), None, 0)
+    kfa.check_kernel_inputs(*_fa_inputs(dtype=torch.bfloat16, d=256), 8, 3)
