@@ -6,7 +6,8 @@
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
 
 0. the card (``nvidia-smi`` name and power limit) and the kernel build
-   (one ``nvcc`` per source, all at once; registers and spills printed);
+   (one ``nvcc`` per source, all at once; registers, spills and ptxas's
+   wgmma serialization notes printed);
 1. ``flash_decode`` (kernel) against ``flash_decode_plain`` on the card,
    six cases: (a) the serving shape b=8, hq=hkv=16, d=128, S=1024, bf16,
    ragged pos 100..1000; (b) the same in fp32; (c) GQA 32/8 over a cache
@@ -27,12 +28,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    yardstick that leaves the dequantization out);
 1c. ``qmatmul`` (fp8 e4m3 container) and ``qmatmul_packed`` (fp4, fp6
    e2m3, fp6 e3m2) against their plain versions at (m, n, k) =
-   (2048, 2048, 2048), (2048, 4096, 8192), (8, 8192, 2048) and the
-   ragged (200, 1024, 1024), bf16 out: within 2 bf16 ulps plus 1e-4 *
-   sqrt(k / 1024) (summation order).  Packed must be bit-identical to the
-   container kernel on the same values.  At 2048^3 and (8, 8192, 2048)
-   it times both kernels, their plain versions and ``torch.matmul`` in
-   bf16 over the weight dequantized beforehand (a yardstick);
+   (2048, 2048, 2048), (2048, 4096, 8192), (8, 8192, 2048), the ragged
+   (200, 1024, 1024), and across the edge of the kernel's narrow (m <=
+   64, split k) and wide paths (64, 8192, 2048) and (65, 1024, 1024),
+   bf16 out: within 2 bf16 ulps plus 1e-4 * sqrt(k / 1024) (summation
+   order).  Packed must be bit-identical to the container kernel on the
+   same values.  At 2048^3 and (8, 8192, 2048) it times both kernels,
+   their plain versions and ``torch.matmul`` in bf16 over the weight
+   dequantized beforehand (a yardstick);
 1d. the probe kernels against their plain versions: ``chase`` exact (the
    final index, also against the numpy oracle) over (rows, 128) buffers
    at rows 16, 4096, 2^17 and flat (n, 1) chains at n = 2^12, 2^20,
@@ -89,7 +92,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
 2c. the block-scaled GEMM path of the Tab VII benchmark: the user entry
    points ``quantize_for_qmatmul`` + ``qmatmul`` (fp8) and
    ``pack_for_qmatmul`` + ``qmatmul_packed`` (fp4) at its sizes 512^3 ..
-   8192^3, each output held to the plain version;
+   8192^3, each output held to the plain version; then, per size, the
+   port's Tab VII: both kernels' ms and TFLOP/s beside ``torch.matmul``
+   in bf16 over the weight dequantized beforehand (a yardstick);
 2d. full-width mamba2-2.7b (64 layers, d_model 2560, 80 SSD heads,
    ssm_state 128, vocab 50280, bf16, seeded random weights) through
    ``ServeEngine.run``: 8 requests x 512-token prompts x 64 new tokens,
@@ -509,7 +514,7 @@ def phase1c_qmatmul(hbm, peak_bf16):
         qmatmul_plain, quantize_for_qmatmul)
     from repro_torch.serve.quant import dequantize_blockwise
     shapes = [(2048, 2048, 2048), (2048, 4096, 8192), (8, 8192, 2048),
-              (200, 1024, 1024)]
+              (200, 1024, 1024), (64, 8192, 2048), (65, 1024, 1024)]
     errors = {}
     for m, n, k in shapes:
         x, w = _qmm_case(m + n + k, m, n, k)
@@ -1194,6 +1199,33 @@ def phase2c_gemm_path():
                   qmatmul_packed_plain(x, *pk, "float4_e2m1fn"), k)
     log(f"[gemm path] {len(sizes)} sizes {sizes[0]}..{sizes[-1]}: launches "
         f"{counts}")
+
+    # the port's Tab VII, after the counted run: device ms per call, inputs
+    # cycled through > the L2
+    from repro_torch.serve.quant import dequantize_blockwise
+    for (m, n, k), (x, qc, pk) in zip(sizes, inputs):
+        flops = 2 * m * n * k
+
+        def packed(x, pw, sc):
+            return ops.qmatmul_packed(x, pw, sc, "float4_e2m1fn")
+
+        row = []
+        for fn, args in ((ops.qmatmul, (x, *qc)), (packed, (x, *pk))):
+            sets = [args] + [(x, args[1].clone(), args[2].clone())
+                             for _ in range(n_sets(nbytes(*args)) - 1)]
+            row.append(time_ms(fn, sets, reps=10, n=6))
+            del sets
+        wd = dequantize_blockwise(qc[0], qc[1], torch.bfloat16)
+        lib_sets = [(x, wd)] + [(x, wd.clone()) for _ in range(
+            n_sets(nbytes(x, wd)) - 1)]
+        lib = time_ms(lambda a, b: torch.matmul(a, b.T), lib_sets, reps=10,
+                      n=6)
+        del wd, lib_sets
+        log(f"[tab7] {m}x{n}x{k}: qmatmul fp8 {row[0]:.4f} ms "
+            f"({flops / row[0] / 1e9:.1f} TFLOP/s), qmatmul_packed fp4 "
+            f"{row[1]:.4f} ms ({flops / row[1] / 1e9:.1f} TFLOP/s), "
+            f"torch.matmul bf16 {lib:.4f} ms ({flops / lib / 1e9:.1f} "
+            f"TFLOP/s)")
     return counts
 
 
@@ -1769,7 +1801,7 @@ def main() -> int:
         lines = collections.Counter(
             line.split(":", 1)[-1].strip()
             for line in _build.build_log.get(src, "").splitlines()
-            if "registers" in line or "spill" in line)
+            if "registers" in line or "spill" in line or "C75" in line)
         for line, count in sorted(lines.items()):
             log(f"[build]   {src}: {count} x {line}")
 

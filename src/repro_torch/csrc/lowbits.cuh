@@ -7,9 +7,15 @@
 // word of 3 bytes), 4 fp4 e2m1 (two values a byte, low nibble first).
 // The unit of work is a quad: 4 consecutive values, whole bytes in every
 // format (4, 3 or 2 bytes).  Every decode is exact.
+//
+// decode8 is the fast path for eight consecutive values: fp8 pairs go
+// through the hardware's exact fp8 -> f16 conversion, fp6 / fp4 codes
+// through a table of their 2^bits values in bf16 (exact: at most 3
+// mantissa bits) that bf16_table fills from decode<F>.
 
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -79,6 +85,55 @@ template <int F>
 __device__ __forceinline__ float quad_value(uint32_t w, int i) {
   constexpr int kBits = Fmt<F>::bits;
   return decode<F>((w >> (kBits * i)) & ((1u << kBits) - 1));
+}
+
+// the table decode8 reads for fp6 / fp4: entry c = the bf16 bits of
+// decode<F>(c), filled by threads tid, tid + nthreads, ...
+template <int F>
+__device__ __forceinline__ void bf16_table(uint16_t* lut, int tid,
+                                           int nthreads) {
+  if constexpr (F >= 2) {
+    for (int c = tid; c < (1 << Fmt<F>::bits); c += nthreads)
+      lut[c] = static_cast<uint16_t>(__float_as_uint(decode<F>(c)) >> 16);
+  }
+}
+
+// values 0..7 of the 8 codes at p (8, 6 or 4 bytes; fp8 8-byte, fp6 /
+// fp4 2-byte aligned) into v; lut from bf16_table (unused for fp8)
+template <int F>
+__device__ __forceinline__ void decode8(const uint8_t* p, const uint16_t* lut,
+                                        float (&v)[8]) {
+  if constexpr (F <= 1) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint16_t pair =
+          static_cast<uint16_t>((i < 2 ? u.x : u.y) >> (16 * (i & 1)));
+      uint32_t h;
+      if constexpr (F == 0)
+        asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(h) : "h"(pair));
+      else
+        asm("cvt.rn.f16x2.e5m2x2 %0, %1;\n" : "=r"(h) : "h"(pair));
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+    constexpr int kBits = Fmt<F>::bits;
+    uint64_t w;
+    if constexpr (kBits == 4) {
+      w = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      const uint16_t* q = reinterpret_cast<const uint16_t*>(p);
+      w = q[0] | (static_cast<uint64_t>(q[1]) << 16) |
+          (static_cast<uint64_t>(q[2]) << 32);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] = __uint_as_float(
+          static_cast<uint32_t>(lut[(w >> (kBits * i)) & ((1u << kBits) - 1)])
+          << 16);
+  }
 }
 
 }  // namespace lowbits

@@ -5,19 +5,30 @@
 Hopper has fp8 tensor cores but none for fp6 or fp4, so, as on the TPU,
 these formats are storage: weights stay quantized in device memory with
 e8m0 (power-of-two) block scales, 32 values of k per scale, and are
-expanded to fp32 inside the kernel on their way into the product.
+expanded inside the kernel on their way into the product.
 
 * :func:`qmatmul`: x (m, k) @ dequant(qw (n, k) in the registry
   container, scales (n, k/32) fp32).T -> (m, n);
 * :func:`qmatmul_packed`: the same with ``pw`` (n, k*bits/8) uint8
   bit-packed fp4 / fp6, bit-exact with :func:`qmatmul` on the same
-  values (one kernel template; only the tile loader differs).
+  values (one kernel template; only the staged code bytes differ).
 
 The kernel is CUDA C++ (``repro_torch/csrc/qmatmul.cu``), built at first
-use and bound with ctypes.  Each wrapper dispatches on the device of its
-tensors: CPU tensors take the plain version, CUDA tensors launch the
-kernel or raise.  ``qmatmul.launches`` and ``qmatmul_packed.launches``
-count kernel launches.
+use and bound with ctypes.  For bf16 x it stages x, the weight bytes
+and the scales in shared memory by TMA (``cp.async`` where a stride is
+not 16-byte aligned), expands the weights to bf16 there (exact) and
+multiplies on the tensor cores with ``wgmma``.  :func:`plan`, and only
+it, picks the path for bf16 x: "wide" 128 x 128 tiles for m > 64,
+"narrow" (A and B swapped, one block per 128 weight rows) for m <= 64,
+with k split over several blocks when that leaves SMs idle, the splits
+summed in a fixed order by a second kernel that the wrapper launches
+into a workspace it allocates (no atomics).  fp32 x runs the CUDA-core
+kernel, since a tensor-core product would round x.
+
+Each wrapper dispatches on the device of its tensors: CPU tensors take
+the plain version, CUDA tensors launch the kernel or raise.
+``qmatmul.launches`` and ``qmatmul_packed.launches`` count calls that
+launched the kernel (one a call, split or not).
 
 The serving engine does not call these: its weight store is blocked
 along each leaf's last axis (the output axis of ``wq``, ``w1``, ``w2``),
@@ -28,7 +39,9 @@ the entry points of the block-scaled GEMM benchmark (Tab VII).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,6 +55,47 @@ _CONTAINER_FMT = {torch.float8_e4m3fn: "float8_e4m3fn",
                   torch.float8_e5m2: "float8_e5m2"}
 _ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
              + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+_NARROW_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                    + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 4
+                    + [ctypes.c_int, ctypes.c_void_p])
+_REDUCE_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                    + [ctypes.c_int, ctypes.c_void_p])
+# the narrow kernel's most rows of x (qmatmul.cu kNarrowM, which its
+# entry checks) and weight rows a block; the tensor-core kernels' k step
+NARROW_M, NARROW_ROWS, K_STEP = 64, 128, 64
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the tensor-core kernel computes one call with bf16 x.
+    ``path``: "wide" (``repro_qmatmul``) or "narrow"
+    (``repro_qmatmul_narrow``); ``splits``: ranges of k of the narrow
+    path, each summed by its own blocks; ``workspace``: the (splits, m,
+    n) fp32 partial sums a split call needs, else None."""
+    path: str
+    splits: int
+    workspace: Optional[Tuple[int, int, int]]
+
+
+def plan(m: int, n: int, k: int, sms: int) -> Plan:
+    """m <= 64 takes the narrow path.  It splits k when its ``ceil(n /
+    128)`` blocks leave some of the ``sms`` SMs idle: into as many ranges
+    as two blocks an SM can hold at once, each range at least 4 steps of
+    64 values of k."""
+    if m > NARROW_M:
+        return Plan("wide", 1, None)
+    tiles = -(-n // NARROW_ROWS)
+    steps = -(-k // K_STEP)
+    splits = 1
+    if tiles < sms:
+        splits = max(1, min(2 * sms // tiles, steps // 4))
+    return Plan("narrow", splits, (splits, m, n) if splits > 1 else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def quantize_for_qmatmul(w: torch.Tensor, fmt: str
@@ -97,24 +151,74 @@ def _launch(fmt: str, x, w, scales, n: int, out_dtype, what: str):
         if t.device != x.device:
             raise ValueError(f"{what}: {name} is on {t.device}, x on "
                              f"{x.device}")
-    # an fp8 / fp4 quad (4 values of k) is loaded as one aligned word
+    # the CUDA-core kernel loads an fp8 / fp4 quad (4 values of k) as
+    # one aligned word; the tensor-core kernel copies what it is given
     align = {8: 4, 4: 2}.get(compat.dtype_spec(fmt).bits, 1)
     if w.data_ptr() % align or w.stride(0) % align:
         raise ValueError(f"{what}: weight rows must be {align}-byte aligned")
     lib = _build.load("qmatmul")
-    fn = lib.repro_qmatmul
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    # fp32 x: repro_qmatmul runs the CUDA-core kernel (by x's dtype)
+    pl = (plan(m, n, k, _sms(x.device.index))
+          if x.dtype == torch.bfloat16 else None)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
-                 lowbits.CUDA_FORMAT_ID[fmt],
-                 x.data_ptr(), w.data_ptr(), scales.data_ptr(),
-                 out.data_ptr(), m, n, k, x.stride(0), w.stride(0),
-                 scales.stride(0), out.stride(0), stream)
+        if pl is None or pl.path == "wide":
+            fn = lib.repro_qmatmul
+            fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+            err = fn(_DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
+                     lowbits.CUDA_FORMAT_ID[fmt],
+                     x.data_ptr(), w.data_ptr(), scales.data_ptr(),
+                     out.data_ptr(), m, n, k, x.stride(0), w.stride(0),
+                     scales.stride(0), out.stride(0), stream)
+        else:
+            part = (None if pl.workspace is None else
+                    torch.empty(pl.workspace, dtype=torch.float32,
+                                device=x.device))
+            fn = lib.repro_qmatmul_narrow
+            fn.argtypes, fn.restype = _NARROW_ARGTYPES, ctypes.c_int
+            err = fn(_DTYPE_CODE[out_dtype], lowbits.CUDA_FORMAT_ID[fmt],
+                     x.data_ptr(), w.data_ptr(), scales.data_ptr(),
+                     out.data_ptr(),
+                     None if part is None else part.data_ptr(), m, n, k,
+                     x.stride(0), w.stride(0), scales.stride(0),
+                     out.stride(0), pl.splits, stream)
+            if err == 0 and part is not None:
+                fn = lib.repro_qmatmul_reduce
+                fn.argtypes, fn.restype = _REDUCE_ARGTYPES, ctypes.c_int
+                err = fn(_DTYPE_CODE[out_dtype], part.data_ptr(),
+                         out.data_ptr(), m, n, out.stride(0), pl.splits,
+                         stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
     return out
+
+
+def wgmma_unit_tile(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The check of ``csrc/wgmma.cuh``: ``a (64, k) @ b (128, k).T`` in
+    fp32 for bf16 CUDA tensors, k in 16, 32, 48, 64, by one warpgroup's
+    four m64n128k16 products at advancing descriptors over tiles stored
+    swizzled (zeros past k)."""
+    k = a.shape[1]
+    if (a.shape != (64, k) or b.shape != (128, k) or k not in (16, 32, 48, 64)
+            or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+            or a.device.type != "cuda" or b.device != a.device):
+        raise ValueError(f"wgmma_unit_tile: needs bf16 CUDA a (64, k), "
+                         f"b (128, k), k in 16..64 by 16; got "
+                         f"{tuple(a.shape)} {a.dtype}, {tuple(b.shape)} "
+                         f"{b.dtype} on {a.device}")
+    a, b = a.contiguous(), b.contiguous()
+    d = torch.empty((64, 128), dtype=torch.float32, device=a.device)
+    fn = _build.load("qmatmul").repro_wgmma_unit
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), k,
+                 torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wgmma_unit_tile launch failed: CUDA error "
+                           f"{err}")
+    return d
 
 
 def _check_device(x: torch.Tensor, what: str) -> None:

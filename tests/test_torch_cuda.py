@@ -14,7 +14,10 @@ reference does; the kernel keeps p in fp32).  ``qmatmul`` /
 ``qmatmul_packed``: fp32 output rtol 1e-5, atol 1e-4 * sqrt(k / 1024)
 (only the summation order differs); bf16 output within 2 bf16 ulps of
 the plain version plus that fp32 tolerance; packed bit-identical to the
-container kernel.  Probe kernels: ``chase`` exact; ``dep_chain``
+container kernel, on the narrow (m <= 64) and the wide path; two calls
+bit-identical.  The ``wgmma.cuh`` unit tile: rtol 1e-5, atol 1e-5
+against an fp32 product of the same bf16 operands (exact products,
+only the summation order differs).  Probe kernels: ``chase`` exact; ``dep_chain``
 (``probe_dep_chain.assert_chain_close``): the compute workloads' int32,
 fp32, mixed1 and mixed2 (up to chain 40) values exact, fp64 and the
 public chain (a = 1.0001, b = 0.5) within (n + 1) ulps (fma against the
@@ -46,8 +49,8 @@ from repro_torch.kernels import probe_mma as pm
 from repro_torch.kernels.flash_decode_quant import (
     flash_decode_quant, flash_decode_quant_plain)
 from repro_torch.kernels.qmatmul import (
-    pack_for_qmatmul, qmatmul, qmatmul_packed, qmatmul_packed_plain,
-    qmatmul_plain, quantize_for_qmatmul)
+    pack_for_qmatmul, plan, qmatmul, qmatmul_packed, qmatmul_packed_plain,
+    qmatmul_plain, quantize_for_qmatmul, wgmma_unit_tile)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import attention as attn
 from repro_torch.models.model import build_model
@@ -297,6 +300,109 @@ def test_qmatmul_fp32_x_and_ragged_n(cuda):
     qw, sc = quantize_for_qmatmul(w, "float8_e4m3fn")
     _assert_qmm_close(qmatmul(x, qw, sc, out_dtype=F32),
                       qmatmul_plain(x, qw, sc, F32), 256)
+
+
+@pytest.mark.parametrize("k", [16, 32, 48, 64])
+def test_wgmma_unit_tile(cuda, k):
+    """One warpgroup's m64n128k16 products through the swizzled tiles
+    and descriptors of ``wgmma.cuh``, k / 16 slices."""
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.standard_normal((64, k), np.float32))
+    b = torch.from_numpy(rng.standard_normal((128, k), np.float32))
+    a, b = a.to("cuda", BF16), b.to("cuda", BF16)
+    got = wgmma_unit_tile(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, a.float() @ b.float().T, rtol=1e-5,
+                               atol=1e-5)
+
+
+def _qmm_check_both(x, w, fmt, out_dtype, k):
+    """qmatmul (and qmatmul_packed, bit for bit) against the plain
+    version; returns the container kernel's output."""
+    qw, sc = quantize_for_qmatmul(w, fmt)
+    got = qmatmul(x, qw, sc, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (x.shape[0], w.shape[1]) and got.dtype == out_dtype
+    _assert_qmm_close(got, qmatmul_plain(x, qw, sc, out_dtype), k)
+    if fmt in PACKED:
+        pw, sc2 = pack_for_qmatmul(w, fmt)
+        got_p = qmatmul_packed(x, pw, sc2, fmt, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got_p.view(torch.uint8), got.view(torch.uint8))
+    return got
+
+
+@pytest.mark.parametrize("k", [32, 96, 2048])
+@pytest.mark.parametrize("n", [100, 192, 8200])
+@pytest.mark.parametrize("m", [1, 8, 64, 65, 200, 256])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_qmatmul_tensor_core_paths(cuda, fmt, m, n, k):
+    """bf16 x: the narrow path (m <= 64, split k at n = 8200 and at
+    k = 2048) and the wide one, ragged n, a last half step of k (k =
+    32, 96: fp6 packed rows of 24 and 72 bytes)."""
+    x, w = _qmm_inputs(m + n + k, m, n, k)
+    _qmm_check_both(x, w, fmt, BF16, k)
+
+
+@pytest.mark.parametrize("m", [8, 64, 200])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_qmatmul_tensor_core_fp32_out(cuda, fmt, m):
+    x, w = _qmm_inputs(m, m, 192, 2048)
+    _qmm_check_both(x, w, fmt, F32, 2048)
+
+
+@pytest.mark.parametrize("pad", [8, 4, 1, "offset"])
+@pytest.mark.parametrize("m", [8, 200])
+def test_qmatmul_strided_x(cuda, m, pad):
+    """x a view with ldx > k: rows 16-, 8- or 2-byte aligned (the copy
+    granule follows), or starting one element in."""
+    k, n = 512, 192
+    x, w = _qmm_inputs(m + 1, m, n, k)
+    if pad == "offset":
+        big = torch.zeros((m, k + 8), dtype=BF16, device="cuda")
+        big[:, 1:k + 1] = x
+        xs = big[:, 1:k + 1]
+    else:
+        big = torch.zeros((m, k + pad), dtype=BF16, device="cuda")
+        big[:, :k] = x
+        xs = big[:, :k]
+    assert xs.stride(0) > k
+    for fmt in ("float8_e4m3fn", "float6_e2m3fn", "float4_e2m1fn"):
+        got = _qmm_check_both(xs, w, fmt, BF16, k)
+        qw, sc = quantize_for_qmatmul(w, fmt)
+        assert torch.equal(got, qmatmul(x, qw, sc))
+
+
+@pytest.mark.parametrize("m", [8, 200])
+def test_qmatmul_packed_weight_rows_at_odd_offsets(cuda, m):
+    """fp6 codes read from a view one byte in, row stride 3k/4 + 1: too
+    ragged for TMA and cp.async, the rows are copied byte by byte."""
+    k, n = 512, 192
+    x, w = _qmm_inputs(m + 11, m, n, k)
+    pw, sc = pack_for_qmatmul(w, "float6_e2m3fn")
+    big = torch.zeros((n, pw.shape[1] + 1), dtype=torch.uint8,
+                      device="cuda")
+    big[:, 1:] = pw
+    got = qmatmul_packed(x, big[:, 1:], sc, "float6_e2m3fn")
+    torch.cuda.synchronize()
+    assert torch.equal(got, qmatmul_packed(x, pw, sc, "float6_e2m3fn"))
+    _assert_qmm_close(got, qmatmul_packed_plain(x, pw, sc, "float6_e2m3fn"),
+                      k)
+
+
+@pytest.mark.parametrize("m, n, k", [(8, 8192, 2048), (64, 1024, 1024),
+                                     (200, 1024, 1024)])
+def test_qmatmul_two_calls_bit_identical(cuda, m, n, k):
+    """No atomics: the split-k path (8 x 8192 x 2048 splits k on an
+    H100) and the others give the same bits twice."""
+    x, w = _qmm_inputs(5, m, n, k)
+    pw, sc = pack_for_qmatmul(w, "float4_e2m1fn")
+    a = qmatmul_packed(x, pw, sc, "float4_e2m1fn")
+    b = qmatmul_packed(x, pw, sc, "float4_e2m1fn")
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert plan(m, n, k, sms).path == ("narrow" if m <= 64 else "wide")
 
 
 # ------------------------------------------------------------------ #

@@ -2,7 +2,9 @@
 the CPU: ``quantize_for_qmatmul`` / ``pack_for_qmatmul`` bytes, the plain
 versions of ``qmatmul`` / ``qmatmul_packed`` against the reference's
 Pallas kernels (interpret mode, m=16, n=128, k=256, small blocks) and
-``qmatmul_ref``, and packed equal to container bit for bit.
+``qmatmul_ref``, and packed equal to container bit for bit; and the
+wrapper's host-side choice of the kernel's path (``plan``: by x's dtype
+and m, and the narrow path's split of k with its workspace shape).
 
 Tolerance against the reference: bf16 outputs within 2 bf16 ulps plus
 1e-4 * sqrt(k / 1024), because the reference accumulates its k blocks
@@ -23,7 +25,8 @@ from repro.kernels.ref import qmatmul_ref  # noqa: E402
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.qmatmul import (  # noqa: E402
-    qmatmul_packed_plain, qmatmul_plain)
+    NARROW_M, Plan, plan, qmatmul_packed_plain, qmatmul_plain,
+    wgmma_unit_tile)
 
 FORMATS = ("float8_e4m3fn", "float8_e5m2", "float6_e2m3fn",
            "float6_e3m2fn", "float4_e2m1fn")
@@ -112,3 +115,64 @@ def test_packed_equals_container_bit_for_bit(fmt):
     np.testing.assert_array_equal(
         qmatmul_packed_plain(x, pw, sc, fmt).float().numpy(),
         qmatmul_plain(x, qw, sc).float().numpy())
+
+
+@pytest.mark.parametrize("m, path", [(1, "narrow"), (8, "narrow"),
+                                     (64, "narrow"), (65, "wide"),
+                                     (2048, "wide")])
+def test_plan_path_by_m(m, path):
+    """bf16 x: A and B swap (the narrow entry) at m <= 64, the only
+    place the choice is made; the wide path never splits k."""
+    pl = plan(m, 8192, 2048, 132)
+    assert pl.path == path
+    if path == "wide":
+        assert pl == Plan("wide", 1, None)
+
+
+@pytest.mark.parametrize("m, n, k, splits", [
+    (8, 8192, 2048, 4),      # 64 blocks on 132 SMs: 4 x 64 <= 2 an SM
+    (64, 8192, 2048, 4),
+    (8, 8200, 2048, 4),      # 65 blocks, the last ragged
+    (8, 1024, 1024, 4),      # capped: at least 4 steps of 64 a split
+    (1, 100, 32, 1),         # one step of k: nothing to split
+    (37, 192, 96, 1),
+    (8, 16896, 2048, 1),     # 132 blocks fill the card
+    (200, 1024, 1024, 1),    # the wide path never splits
+])
+def test_plan_split_k_workspace(m, n, k, splits):
+    pl = plan(m, n, k, 132)
+    assert pl.splits == splits
+    assert pl.workspace == ((splits, m, n) if splits > 1 else None)
+    assert splits == 1 or -(-k // 64) // splits >= 4
+    assert splits * -(-n // 128) <= 2 * 132 or splits == 1
+
+
+def test_plan_fits_the_kernel_entries():
+    """What ``repro_qmatmul_narrow`` accepts: m <= 64, and a split k
+    needs a workspace and at most one split per step of 64 values of k;
+    the wide path (``repro_qmatmul``) takes no workspace."""
+    for m in (1, 7, 8, 9, 33, 64, 65, 129):
+        for n in (1, 100, 128, 8200, 20000):
+            for k in (32, 64, 96, 256, 2048, 8192):
+                for sms in (1, 78, 132):
+                    pl = plan(m, n, k, sms)
+                    assert pl.path == ("narrow" if m <= NARROW_M else "wide")
+                    if pl.path == "wide":
+                        assert pl == Plan("wide", 1, None)
+                    elif pl.splits > 1:
+                        assert pl.splits <= -(-k // 64)
+                        assert pl.workspace == (pl.splits, m, n)
+                    else:
+                        assert pl.workspace is None
+
+
+def test_plan_split_k_follows_the_sm_count():
+    assert plan(8, 8192, 2048, 264).splits == 8
+    assert plan(8, 8192, 2048, 64).splits == 1
+
+
+def test_wgmma_unit_tile_needs_the_card():
+    a = torch.zeros((64, 16), dtype=torch.bfloat16)
+    b = torch.zeros((128, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="wgmma_unit_tile"):
+        wgmma_unit_tile(a, b)
