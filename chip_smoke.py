@@ -9,23 +9,33 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    (one ``nvcc`` per source, all at once; registers, spills and ptxas's
    wgmma serialization notes printed);
 1. ``flash_decode`` (kernel) against ``flash_decode_plain`` on the card,
-   six cases: (a) the serving shape b=8, hq=hkv=16, d=128, S=1024, bf16,
+   ten cases: (a) the serving shape b=8, hq=hkv=16, d=128, S=1024, bf16,
    ragged pos 100..1000; (b) the same in fp32; (c) GQA 32/8 over a cache
    stored (b, hkv, S, d) and passed as a strided (b, S, hkv, d) view;
    (d) window 256 + softcap 50 over wrapped rings; (e) S=1000; (f) a row
-   with no visible slot, which must come out finite.  Tolerances: fp32
+   with no visible slot (every split empty), which must come out 0; (g)
+   one long row, b=1, S=4096 (the S axis split over the most blocks);
+   (h) rows whose visible slots all lie in one split; (i) a 700-slot
+   window of wrapped rings, across every split; (j) a cache view whose
+   rows force copies narrower than 16 bytes.  Tolerances: fp32
    atol=rtol=1e-5; bf16 atol 2e-2, because the plain version rounds p to
    bf16 before PV (as the reference does) and the kernel keeps fp32.
-   At shape (a) it times the kernel, the plain version and, as a
-   yardstick only, ``scaled_dot_product_attention`` (the port never
-   calls it), and computes the least time the card could take;
+   Two calls at (a), and a third after a call of another grid, must give
+   the same bits.  At (a) and at the serving step's cache (s: the same
+   shape, every row at pos 300) it times the kernel, the plain version
+   and, as a yardstick only, ``scaled_dot_product_attention`` (the port
+   never calls it), computes the least time the card could take, and
+   prints the kernel's split count, copy width and TB/s of visible bytes;
 1b. ``flash_decode_quant`` against its plain version (``dequantize_kv``
    then ``decode_attention``): all five formats at shape (a) in bf16;
    fp4 in fp32; GQA 32/8 over a head-major strided cache; window 256 +
-   softcap 50 on wrapped rings; a row with no visible slot.  Same
-   tolerances.  At (a), for fp8 and fp4, it times the kernel, the plain
-   version and SDPA over the cache dequantized beforehand to bf16 (a
-   yardstick that leaves the dequantization out);
+   softcap 50 on wrapped rings; a row with no visible slot; (g) one long
+   row, (h) one-split rows, (i) a wrapped window across the splits and
+   (j) 1-byte copies, as in phase 1.  Same tolerances and the same
+   bit-identity check.  At (a) and (s), for fp8 and fp4, it times the
+   kernel, the plain version and SDPA over the cache dequantized
+   beforehand to bf16 (a yardstick that leaves the dequantization out),
+   with the split count, copy widths and TB/s;
 1c. ``qmatmul`` (fp8 e4m3 container) and ``qmatmul_packed`` (fp4, fp6
    e2m3, fp6 e3m2) against their plain versions at (m, n, k) =
    (2048, 2048, 2048), (2048, 4096, 8192), (8, 8192, 2048), the ragged
@@ -205,10 +215,12 @@ def ring_slot_pos(pos: int, S: int) -> np.ndarray:
     return sp
 
 
-def decode_case(seed, b, S, hq, hkv, d, dtype, pos, head_major=False):
+def decode_case(seed, b, S, hq, hkv, d, dtype, pos, head_major=False,
+                pad=0):
     """q (b,1,hq,d), k/v (b,S,hkv,d) and slot_pos/pos on the card.  With
     ``head_major`` the cache is stored (b, hkv, S, d) and handed over as
-    a strided (b, S, hkv, d) view."""
+    a strided (b, S, hkv, d) view; with ``pad`` it is a view into rows of
+    d + pad elements (copies narrower than 16 bytes)."""
     rng = np.random.default_rng(seed)
     dev = "cuda"
 
@@ -221,17 +233,21 @@ def decode_case(seed, b, S, hq, hkv, d, dtype, pos, head_major=False):
         k = t((b, hkv, S, d)).transpose(1, 2)
         v = t((b, hkv, S, d)).transpose(1, 2)
     else:
-        k, v = t((b, S, hkv, d)), t((b, S, hkv, d))
+        k = t((b, S, hkv, d + pad))[..., :d]
+        v = t((b, S, hkv, d + pad))[..., :d]
     pos = np.asarray(pos, np.int32)
     sp = np.stack([ring_slot_pos(int(p), S) for p in pos])
     return (q, k, v, torch.from_numpy(sp).to(dev),
             torch.from_numpy(pos).to(dev))
 
 
-def quant_case(fmt, seed, b, S, hq, hkv, d, dtype, pos, head_major=False):
+def quant_case(fmt, seed, b, S, hq, hkv, d, dtype, pos, head_major=False,
+               pad=0):
     """q, a quantized cache dict (``quantize_kv`` of fp32 K/V on the
     card, in the engine's (b, S, hkv, ...) layout or, ``head_major``,
-    stored (b, hkv, S, ...) and handed over as strided views) and pos."""
+    stored (b, hkv, S, ...) and handed over as strided views; with
+    ``pad``, code and scale rows are views into rows ``pad`` bytes longer)
+    and pos."""
     from repro_torch.models.attention import quantize_kv
     q, k, v, sp, pos = decode_case(seed, b, S, hq, hkv, d, torch.float32,
                                    pos, head_major)
@@ -242,6 +258,14 @@ def quant_case(fmt, seed, b, S, hq, hkv, d, dtype, pos, head_major=False):
             codes, scales = codes.transpose(1, 2), scales.transpose(1, 2)
         else:
             codes, scales = quantize_kv(x, fmt)
+        if pad:
+            rows = []
+            for t in (codes, scales):
+                buf = torch.zeros((*t.shape[:3], t.shape[3] + pad),
+                                  dtype=torch.uint8, device=t.device)
+                buf[..., :t.shape[3]] = t.view(torch.uint8)
+                rows.append(buf[..., :t.shape[3]].view(t.dtype))
+            codes, scales = rows
         kv[f"{name}_q"], kv[f"{name}_s"] = codes, scales
     return q.to(dtype), kv, pos
 
@@ -349,155 +373,260 @@ def profile_fn(fn, kernel_key: str):
 # phases
 # --------------------------------------------------------------------- #
 
+def decode_bound(n_vis, hq, hkv, d, row_bytes, q, extra, hbm, peak):
+    """(bound ms, bound_by, bytes) of one decode call: the visible K and V
+    rows (``row_bytes`` a (slot, kv-head) row: values, or codes and
+    scales), q read and the output written (q's size), slot_pos and pos;
+    4 d flops per visible (slot, q-head)."""
+    moved = 2 * n_vis * hkv * row_bytes + 2 * nbytes(q) + extra
+    flops = 4 * n_vis * hq * d
+    ms, by = bound(moved, flops, hbm, peak)
+    return ms, by, moved
+
+
+def check_bits(label: str, run, other) -> None:
+    """``run()`` twice, then once more after ``other()`` (another grid, so
+    the arrival counters must have been reset): the same bits each time."""
+    first = run()
+    again = run()
+    other()
+    third = run()
+    torch.cuda.synchronize()
+    raw = [x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+           for x in (first, again, third)]
+    if not (torch.equal(raw[0], raw[1]) and torch.equal(raw[0], raw[2])):
+        raise AssertionError(f"{label}: two calls are not bit-identical")
+    log(f"[kernel] {label}: bit-identical over two calls and after a call "
+        f"of another grid")
+
+
+def _plan_note(pl, moved: int, ms: float) -> str:
+    return (f"splits {pl.splits}, copy widths {pl.widths} B, "
+            f"{moved / ms / 1e9:.3f} TB/s of visible bytes")
+
+
 def phase1_flash_decode(hbm, peak_bf16):
+    from repro_torch import compat
     from repro_torch.kernels.flash_decode import (
-        flash_decode, flash_decode_plain)
+        flash_decode, flash_decode_plain, plan)
     ragged = np.linspace(100, 1000, 8).astype(np.int32)
     wrapped = np.linspace(500, 3000, 8).astype(np.int32)
+    serving = dict(b=8, S=1024, hq=16, hkv=16, d=128, dtype=torch.bfloat16)
     cases = {
-        "a_serving_bf16": (dict(seed=1, b=8, S=1024, hq=16, hkv=16, d=128,
-                                dtype=torch.bfloat16, pos=ragged), {}),
-        "b_serving_fp32": (dict(seed=1, b=8, S=1024, hq=16, hkv=16, d=128,
-                                dtype=torch.float32, pos=ragged), {}),
-        "c_gqa_32_8_strided": (dict(seed=2, b=8, S=1024, hq=32, hkv=8,
-                                    d=128, dtype=torch.bfloat16, pos=ragged,
-                                    head_major=True), {}),
-        "d_window_softcap": (dict(seed=3, b=8, S=1024, hq=16, hkv=16,
-                                  d=128, dtype=torch.bfloat16, pos=wrapped),
+        "a_serving_bf16": (dict(serving, seed=1, pos=ragged), {}),
+        "b_serving_fp32": (dict(serving, seed=1, dtype=torch.float32,
+                                pos=ragged), {}),
+        "c_gqa_32_8_strided": (dict(serving, seed=2, hq=32, hkv=8,
+                                    pos=ragged, head_major=True), {}),
+        "d_window_softcap": (dict(serving, seed=3, pos=wrapped),
                              dict(window=256, softcap=50.0)),
-        "e_S1000": (dict(seed=4, b=8, S=1000, hq=16, hkv=16, d=128,
-                         dtype=torch.bfloat16, pos=ragged), {}),
-        "f_empty_row": (dict(seed=5, b=8, S=1024, hq=16, hkv=16, d=128,
-                             dtype=torch.bfloat16, pos=ragged), {}),
+        "e_S1000": (dict(serving, seed=4, S=1000, pos=ragged), {}),
+        "f_empty_row": (dict(serving, seed=5, pos=ragged), {}),
+        # one long row: b = 1, every tile of S = 4096 across the splits
+        "g_long_row_S4096": (dict(serving, seed=6, b=1, S=4096,
+                                  pos=np.array([4095], np.int32)), {}),
+        # every visible slot in tile 0: one split works, the rest are empty
+        "h_one_split_rows": (dict(serving, seed=7, pos=np.array(
+            [0, 5, 20, 31, 31, 10, 1, 25], np.int32)), {}),
+        # a 700-slot window of a wrapped ring, across every split
+        "i_window_wrapped_splits": (dict(serving, seed=8, pos=np.linspace(
+            1100, 5000, 8).astype(np.int32)), dict(window=700)),
+        # rows of 132 bf16 (264 B): 8-byte copies
+        "j_narrow_copy": (dict(serving, seed=9, pos=ragged, pad=4), {}),
     }
+    sms = compat.sm_count(0)
     errors = {}
     for case, (spec, flags) in cases.items():
         q, k, v, sp, pos = decode_case(**spec)
         if case == "f_empty_row":
             sp[3] = -1
+        pl = plan(q, k, v, sp, pos, sms)
         got = flash_decode(q, k, v, sp, pos, **flags)
         torch.cuda.synchronize()
         want = flash_decode_plain(q, k, v, sp, pos, **flags)
         torch.cuda.synchronize()
         rows = visible(sp, pos, flags.get("window")).any(dim=1)
-        errors[case] = check_close(case, got, want, rows, TOL[q.dtype])
+        errors[case] = check_close(
+            f"{case} (splits {pl.splits}, width {pl.widths[0]})", got, want,
+            rows, TOL[q.dtype])
+        if not (got[~rows] == 0).all():
+            raise AssertionError(f"{case}: a row with no visible slot is "
+                                 f"not 0")
+        if case == "j_narrow_copy" and pl.widths[0] >= 16:
+            raise AssertionError(f"{case}: copies {pl.widths} B wide")
+    a = decode_case(**cases["a_serving_bf16"][0])
+    g = decode_case(**cases["g_long_row_S4096"][0])
+    check_bits("flash_decode (a)", lambda: flash_decode(*a),
+               lambda: flash_decode(*g))
 
-    # timing and bound at the serving shape (a): three input sets (3 x 67
-    # MB of K/V) cycled so that no call finds its K/V in L2
-    spec = cases["a_serving_bf16"][0]
-    sets = [decode_case(**dict(spec, seed=s)) for s in (11, 12, 13)]
-    q, k, v, sp, pos = sets[0]
-    b, _, hq, d = q.shape
-    hkv = k.shape[2]
-    scale = 1.0 / math.sqrt(d)
-    ms = time_ms(flash_decode, sets)
-    plain_ms = time_ms(flash_decode_plain, sets)
-    sdpa_sets = [(x[0].transpose(1, 2), x[1].transpose(1, 2),
-                  x[2].transpose(1, 2), visible(x[3], x[4])[:, None, None])
-                 for x in sets]
-    library_ms = time_ms(
-        lambda qt, kt, vt, mask: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=scale), sdpa_sets)
-    n_vis = int(visible(sp, pos).sum())          # visible (row, slot) pairs
-    item = k.element_size()
-    moved = (2 * n_vis * hkv * d * item + q.numel() * item * 2
-             + sp.numel() * 4 + pos.numel() * 4)
-    flops = 4 * n_vis * hq * d                   # QK and PV, 2 per MAC
-    bound_ms, bound_by = bound(moved, flops, hbm, peak_bf16)
-    log(f"[kernel] timing at (a): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}: {moved} B, {flops} flop; {n_vis} visible slots)")
-    return {"name": "flash_decode", "route": "cuda", "source": FD_SOURCE,
-            "replaces": FD_REPLACES, "launches": None,
-            "max_abs_err": errors["a_serving_bf16"], "ms": ms,
+    # timing and bound at the serving shape (a) and at the serving step's
+    # cache (s): every row at pos 300.  Input sets (67 MB of K/V each) are
+    # cycled so that no call finds its K/V in L2
+    entries = []
+    for label, pos in (("a", ragged), ("s", np.full(8, 300, np.int32))):
+        sets = [decode_case(**dict(serving, seed=s, pos=pos))
+                for s in (11, 12, 13)]
+        q, k, v, sp, pos_t = sets[0]
+        b, _, hq, d = q.shape
+        hkv = k.shape[2]
+        scale = 1.0 / math.sqrt(d)
+        err = errors["a_serving_bf16"]
+        if label == "s":
+            err = check_close("s_serving_step", flash_decode(*sets[0]),
+                              flash_decode_plain(*sets[0]),
+                              visible(sp, pos_t).any(dim=1),
+                              TOL[torch.bfloat16])
+        ms = time_ms(flash_decode, sets)
+        plain_ms = time_ms(flash_decode_plain, sets)
+        sdpa_sets = [(x[0].transpose(1, 2), x[1].transpose(1, 2),
+                      x[2].transpose(1, 2),
+                      visible(x[3], x[4])[:, None, None]) for x in sets]
+        library_ms = time_ms(
+            lambda qt, kt, vt, mask: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale), sdpa_sets)
+        n_vis = int(visible(sp, pos_t).sum())   # visible (row, slot) pairs
+        bound_ms, bound_by, moved = decode_bound(
+            n_vis, hq, hkv, d, d * k.element_size(), q,
+            nbytes(sp, pos_t), hbm, peak_bf16)
+        pl = plan(q, k, v, sp, pos_t, sms)
+        log(f"[kernel] timing at ({label}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {moved} B, {4 * n_vis * hq * d}"
+            f" flop; {n_vis} visible slots); {_plan_note(pl, moved, ms)}")
+        entries.append({
+            "name": ("flash_decode" if label == "a" else
+                     "flash_decode[s_b8_hq16_d128_S1024_pos300]"),
+            "route": "cuda", "source": FD_SOURCE, "replaces": FD_REPLACES,
+            "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms})
+    return entries
 
 
 def phase1b_flash_decode_quant(hbm, peak_bf16):
+    from repro_torch import compat
     from repro_torch.kernels.flash_decode_quant import (
-        flash_decode_quant, flash_decode_quant_plain)
+        flash_decode_quant, flash_decode_quant_plain, plan)
     from repro_torch.models.attention import cache_kv
     ragged = np.linspace(100, 1000, 8).astype(np.int32)
     wrapped = np.linspace(500, 3000, 8).astype(np.int32)
     shape_a = dict(b=8, S=1024, hq=16, hkv=16, d=128, pos=ragged)
-    cases = {f"a_{fmt}_bf16": (fmt, dict(shape_a, seed=21,
-                                         dtype=torch.bfloat16), {})
+    bf16 = torch.bfloat16
+    cases = {f"a_{fmt}_bf16": (fmt, dict(shape_a, seed=21, dtype=bf16), {})
              for fmt in FORMATS}
     cases.update({
         "b_float4_e2m1fn_fp32": ("float4_e2m1fn", dict(
             shape_a, seed=22, dtype=torch.float32), {}),
         "c_gqa_32_8_strided_fp4": ("float4_e2m1fn", dict(
-            shape_a, seed=23, hq=32, hkv=8, dtype=torch.bfloat16,
-            head_major=True), {}),
+            shape_a, seed=23, hq=32, hkv=8, dtype=bf16, head_major=True),
+            {}),
         "d_window_softcap_fp8": ("float8_e4m3fn", dict(
-            shape_a, seed=24, dtype=torch.bfloat16, pos=wrapped),
+            shape_a, seed=24, dtype=bf16, pos=wrapped),
             dict(window=256, softcap=50.0)),
         "f_empty_row_fp6": ("float6_e3m2fn", dict(
-            shape_a, seed=25, dtype=torch.bfloat16), {}),
+            shape_a, seed=25, dtype=bf16), {}),
+        "g_long_row_S4096_fp8": ("float8_e4m3fn", dict(
+            shape_a, seed=26, b=1, S=4096, dtype=bf16,
+            pos=np.array([4095], np.int32)), {}),
+        "h_one_split_rows_fp4": ("float4_e2m1fn", dict(
+            shape_a, seed=27, dtype=bf16,
+            pos=np.array([0, 5, 20, 31, 31, 10, 1, 25], np.int32)), {}),
+        "i_window_wrapped_splits_fp6": ("float6_e2m3fn", dict(
+            shape_a, seed=28, dtype=bf16,
+            pos=np.linspace(1100, 5000, 8).astype(np.int32)),
+            dict(window=700)),
+        # code and scale rows one byte longer: 1-byte copies
+        "j_narrow_copy_fp8": ("float8_e5m2", dict(
+            shape_a, seed=29, dtype=bf16, pad=1), {}),
     })
+    sms = compat.sm_count(0)
     errors = {}
     for case, (fmt, spec, flags) in cases.items():
         q, kv, pos = quant_case(fmt, **spec)
         if case.startswith("f_empty_row"):
             kv["slot_pos"][3] = -1
+        pl = plan(q, kv, pos, fmt, sms)
         got = flash_decode_quant(q, kv, pos, fmt=fmt, **flags)
         torch.cuda.synchronize()
         want = flash_decode_quant_plain(q, kv, pos, fmt=fmt, **flags)
         torch.cuda.synchronize()
         rows = visible(kv["slot_pos"], pos, flags.get("window")).any(dim=1)
-        errors[case] = check_close(case, got, want, rows, TOL[q.dtype])
+        errors[case] = check_close(
+            f"{case} (splits {pl.splits}, widths {pl.widths})", got, want,
+            rows, TOL[q.dtype])
+        if not (got[~rows] == 0).all():
+            raise AssertionError(f"{case}: a row with no visible slot is "
+                                 f"not 0")
+        if case.startswith("j_narrow_copy") and max(pl.widths) >= 16:
+            raise AssertionError(f"{case}: copies {pl.widths} B wide")
+    fmt = "float4_e2m1fn"
+    a = quant_case(fmt, **dict(shape_a, seed=21, dtype=bf16))
+    g = quant_case(fmt, **cases["g_long_row_S4096_fp8"][1])
+    check_bits("flash_decode_quant fp4 (a)",
+               lambda: flash_decode_quant(*a, fmt=fmt),
+               lambda: flash_decode_quant(*g, fmt=fmt))
 
     entries = []
-    for fmt in ("float8_e4m3fn", "float4_e2m1fn"):
-        q, kv, pos = quant_case(fmt, **dict(shape_a, seed=30,
-                                            dtype=torch.bfloat16))
-        per_set = nbytes(kv["k_q"], kv["k_s"], kv["v_q"], kv["v_s"])
-        sets = [(q, kv, pos)] + [
-            quant_case(fmt, **dict(shape_a, seed=31 + i,
-                                   dtype=torch.bfloat16))
-            for i in range(n_sets(per_set) - 1)]
+    for label, pos in (("a", ragged), ("s", np.full(8, 300, np.int32))):
+        for fmt in ("float8_e4m3fn", "float4_e2m1fn"):
+            spec = dict(shape_a, dtype=bf16, pos=pos)
+            q, kv, pos_t = quant_case(fmt, **dict(spec, seed=30))
+            per_set = nbytes(kv["k_q"], kv["k_s"], kv["v_q"], kv["v_s"])
+            sets = [(q, kv, pos_t)] + [
+                quant_case(fmt, **dict(spec, seed=31 + i))
+                for i in range(n_sets(per_set) - 1)]
 
-        def kern(q, kv, pos, fmt=fmt):
-            return flash_decode_quant(q, kv, pos, fmt=fmt)
+            def kern(q, kv, pos, fmt=fmt):
+                return flash_decode_quant(q, kv, pos, fmt=fmt)
 
-        def plain(q, kv, pos, fmt=fmt):
-            return flash_decode_quant_plain(q, kv, pos, fmt=fmt)
+            def plain(q, kv, pos, fmt=fmt):
+                return flash_decode_quant_plain(q, kv, pos, fmt=fmt)
 
-        ms = time_ms(kern, sets)
-        plain_ms = time_ms(plain, sets)
-        d = q.shape[-1]
-        dense = []
-        for qs, kvs, ps in sets:
-            kd, vd = cache_kv(kvs, fmt, d, out_dtype=torch.bfloat16)
-            dense.append((qs.transpose(1, 2), kd.transpose(1, 2),
-                          vd.transpose(1, 2),
-                          visible(kvs["slot_pos"], ps)[:, None, None]))
-        dense = dense[:n_sets(nbytes(*dense[0][1:3]))]
-        library_ms = time_ms(
-            lambda qt, kt, vt, mask: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(d)),
-            dense)
-        hq = q.shape[2]
-        hkv, stored_d = kv["k_q"].shape[2:]
-        n_blk = kv["k_s"].shape[3]
-        n_vis = int(visible(kv["slot_pos"], pos).sum())
-        moved = (2 * n_vis * hkv * (stored_d + n_blk) + 2 * nbytes(q)
-                 + nbytes(kv["slot_pos"], pos))
-        flops = 4 * n_vis * hq * d
-        bound_ms, bound_by = bound(moved, flops, hbm, peak_bf16)
-        log(f"[kernel] flash_decode_quant {fmt} timing at (a): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa over the "
-            f"dequantized bf16 cache {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {moved} B, {flops} flop; "
-            f"{n_vis} visible slots; {len(sets)} input sets)")
-        entries.append({
-            "name": f"flash_decode_quant[{fmt},b8_hq16_d128_S1024]",
-            "route": "cuda", "source": FDQ_SOURCE,
-            "replaces": FDQ_REPLACES, "launches": None,
-            "max_abs_err": errors[f"a_{fmt}_bf16"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "fmt": fmt})
+            err = errors[f"a_{fmt}_bf16"]
+            if label == "s":
+                err = check_close(f"s_serving_step {fmt}", kern(*sets[0]),
+                                  plain(*sets[0]),
+                                  visible(kv["slot_pos"], pos_t).any(dim=1),
+                                  TOL[bf16])
+            ms = time_ms(kern, sets)
+            plain_ms = time_ms(plain, sets)
+            d = q.shape[-1]
+            dense = []
+            for qs, kvs, ps in sets:
+                kd, vd = cache_kv(kvs, fmt, d, out_dtype=bf16)
+                dense.append((qs.transpose(1, 2), kd.transpose(1, 2),
+                              vd.transpose(1, 2),
+                              visible(kvs["slot_pos"], ps)[:, None, None]))
+            dense = dense[:n_sets(nbytes(*dense[0][1:3]))]
+            library_ms = time_ms(
+                lambda qt, kt, vt, mask: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(d)),
+                dense)
+            del dense
+            hq = q.shape[2]
+            hkv, stored_d = kv["k_q"].shape[2:]
+            n_blk = kv["k_s"].shape[3]
+            n_vis = int(visible(kv["slot_pos"], pos_t).sum())
+            bound_ms, bound_by, moved = decode_bound(
+                n_vis, hq, hkv, d, stored_d + n_blk, q,
+                nbytes(kv["slot_pos"], pos_t), hbm, peak_bf16)
+            pl = plan(q, kv, pos_t, fmt, sms)
+            log(f"[kernel] flash_decode_quant {fmt} timing at ({label}): "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa over "
+                f"the dequantized bf16 cache {library_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}: {moved} B, "
+                f"{4 * n_vis * hq * d} flop; {n_vis} visible slots; "
+                f"{len(sets)} input sets); {_plan_note(pl, moved, ms)}")
+            shape = ("b8_hq16_d128_S1024" if label == "a" else
+                     "s_b8_hq16_d128_S1024_pos300")
+            entries.append({
+                "name": f"flash_decode_quant[{fmt},{shape}]",
+                "route": "cuda", "source": FDQ_SOURCE,
+                "replaces": FDQ_REPLACES, "launches": None,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "fmt": fmt})
+            del sets
     return entries
 
 
@@ -1806,7 +1935,7 @@ def main() -> int:
             log(f"[build]   {src}: {count} x {line}")
 
     # ---- 1: kernels vs plain on the card ----------------------------- #
-    fd_entry = phase1_flash_decode(hbm, peak_bf16)
+    fd_entries = phase1_flash_decode(hbm, peak_bf16)
     fdq_entries = phase1b_flash_decode_quant(hbm, peak_bf16)
     qmm_entries = phase1c_qmatmul(hbm, peak_bf16)
     probe_entries = phase1d_probes(model)
@@ -1819,7 +1948,8 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab_size, 256).tolist()
                for _ in range(8)]
     dense = phase2_engine(cfg, prompts)
-    fd_entry["launches"] = dense["launches"]
+    for e in fd_entries:
+        e["launches"] = dense["launches"]
     torch.cuda.empty_cache()
     quant = {fmt: phase2b_quant_engine(cfg, prompts, fmt, fmt)
              for fmt in ("float4_e2m1fn", "float8_e4m3fn")}
@@ -1852,7 +1982,7 @@ def main() -> int:
     # ---- result lines -------------------------------------------------- #
     for line in smi.splitlines():                # again, near the end
         log(line)
-    print(json.dumps({"kernels": [fd_entry, *fdq_entries, *qmm_entries,
+    print(json.dumps({"kernels": [*fd_entries, *fdq_entries, *qmm_entries,
                                   *probe_entries, *ssd_entries,
                                   *fa_entries]}))
     print(json.dumps({"ok": True, "device": {

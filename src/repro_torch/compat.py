@@ -46,6 +46,13 @@ def resolve_device(device: Union[None, str, torch.device] = None
     return dev
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the kernels'
+    wrappers size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def resolve_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
     """A dtype torch holds natively; fp6/fp4 names raise (they live in
     the registry's container, see :func:`dtype_spec`)."""

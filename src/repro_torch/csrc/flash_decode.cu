@@ -12,52 +12,53 @@
 // the engine never samples such a row).
 //
 // Bound: decode attention does ~4 flops per K/V byte, far below the
-// card's ~295 flop/byte balance point, so it is bound by the K/V bytes
-// it reads: 2 * b * hkv * (visible slots) * d * sizeof(kv dtype).
-// What the design does about that:
-//   * one block per (b, kv_head) serves all the q-heads of its group
-//     (up to kMaxG), so each K/V row is read from device memory once;
-//   * a tile with no visible slot is never loaded, so the bytes read
-//     follow the visible slots, not the capacity S (in a partly visible
-//     tile every slot is loaded and the invisible ones are masked out);
+// card's ~295 flop/byte balance point, so the K/V bytes it reads bound
+// it: 2 * b * hkv * (visible slots) * d * sizeof(kv dtype).  Tensor cores
+// are not needed: fp32 FMA on the CUDA cores covers that work many times
+// over.  What the design does about the bytes (the schedule is
+// flash_decode_split.cuh's, shared with flash_decode_quant.cu):
+//   * one block per (b, chunk of a GQA group, split) serves every q-head
+//     of its chunk, so each K/V row is read from device memory once;
+//   * the S axis is split across blocks round-robin in 32-slot tiles, so
+//     the row with the most visible slots no longer walks them alone and
+//     the serving shape's b * hkv = 128 blocks become 512, a wave on 132
+//     SMs; the splits are combined in the same launch by the last one to
+//     arrive;
+//   * only visible rows are copied: a tile with no visible slot is never
+//     listed, and the invisible rows of a listed tile are not loaded;
+//   * K and V rows are staged with cp.async, 16 bytes a thread where the
+//     alignment allows (neighbouring threads on neighbouring chunks of a
+//     row), in a ring of 3 tiles: two tiles' K and V are in flight while
+//     one is scored and summed, so no phase waits a memory latency;
 //   * the cache is read through its strides: the model's (b, S, hkv, d)
-//     pool is used as it lies, with no transposed copy per step;
-//   * with so few blocks (b * hkv = 128 at the serving shape) the time
-//     is memory latency, so each phase starts all its loads before it
-//     uses any, with no branch on memory contents between a load and the
-//     next (such a branch serializes them: one full latency per load):
-//     a tile's slot_pos in one coalesced read, a warp's 8 K rows at
-//     once, kUnrollC V loads in flight per thread.
-// Not yet done (later work): splitting S across blocks with a combine
-// pass (the row with the most visible slots walks all its tiles alone,
-// and b * hkv blocks do not fill 132 SMs at small batch), cp.async/TMA
-// staging of K/V tiles, and 16-byte vector loads.
+//     pool is used as it lies, with no transposed copy per step.
+// Later work: the grid holds one wave of 4 blocks an SM (registers and
+// 53 KB of shared memory at the serving shape), so a long row's split
+// still walks its tiles one after another, each tile's dependent latency
+// in turn; 64-slot tiles or more blocks an SM would shorten that.
 //
-// Block structure: 256 threads; the loop over S in tiles of kTile slots
-// takes the place of the TPU kernel's sequential grid axis.  Per tile:
-//   0. visibility of the tile's slots from one read of slot_pos; a tile
-//      with no visible slot is skipped;
-//   A. warp-per-slot scores: lanes split d, a warp reduction finishes
-//      the dot product for each q-head of the group;
-//   B. warp-per-head online softmax: tile max, rescale factor, p, l;
-//   C. thread-per-element PV: thread (split, e) accumulates element e
-//      over the slots t = split (mod splits) of the tile; the splits'
-//      partial sums are added once at the end (they share m).
+// Per tile, from shared memory (128 threads; the kernel is instantiated
+// for at most 1, 2, 4 or 8 q-heads a block, which sizes its registers):
+//   scores: 8 threads a slot, each on every 8th 16-byte chunk of the K
+//     row (a quarter warp reads 128 contiguous bytes), q in fp32 from
+//     shared memory, a reduction over the 8 lanes per q-head, and each 4
+//     slots' max of the visible scores;
+//   PV: thread (group, c) owns the 16-byte chunk c of a V row (8 bf16 or
+//     4 fp32 values) and sums the group's slots (slot = group mod groups),
+//     keeping the online softmax itself (running max, rescale, p, its
+//     group's part of l): one barrier a tile besides the ring's; the
+//     groups' sums are added in group order at the end.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "flash_decode_split.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;     // slots per tile
-constexpr int kMaxG = 8;      // q-heads per block (<= kWarps)
-constexpr int kMaxD = 256;    // head_dim limit
-constexpr int kSlotsPerWarp = kTile / kWarps;   // phase A
-constexpr int kUnrollC = 16;  // V loads in flight per thread (phase C)
-constexpr float kNegInf = -1.0e30f;
+using namespace fdsplit;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -68,224 +69,264 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const int* slot_pos;
-  const int* pos;
-  void* out;
-  int S, hkv, d, ratio, g_per_block;
-  long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sp_sb, o_sb,
-      o_sh;
-  float scale;
-  int has_window, window, has_softcap;
-  float softcap;
-};
-
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads) flash_decode_kernel(Args a) {
-  const TQ* q = static_cast<const TQ*>(a.q);
-  const TKV* kc = static_cast<const TKV*>(a.k);
-  const TKV* vc = static_cast<const TKV*>(a.v);
-  TQ* out = static_cast<TQ*>(a.out);
-
-  const int b = blockIdx.y;
-  const int chunks = (a.ratio + a.g_per_block - 1) / a.g_per_block;
-  const int kvh = blockIdx.x / chunks;
-  const int h0 = kvh * a.ratio + (blockIdx.x % chunks) * a.g_per_block;
-  const int G = min(a.g_per_block, (kvh + 1) * a.ratio - h0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int d = a.d;
-  const int nj = (d + 31) / 32;               // phase A: d per lane
-  const int splits = kThreads / d;            // phase C slot splits
-  const int split = tid / d, e = tid % d;
-  const bool c_thread = split < splits;
-  const int row_pos = a.pos[b];
-
-  __shared__ float q_s[kMaxG][kMaxD];
-  __shared__ float p_s[kMaxG][kTile];        // scores, then p
-  __shared__ int vis_s[kTile];
-  __shared__ float m_s[kMaxG], l_s[kMaxG], corr_s[kMaxG];
-  __shared__ float red_s[kMaxG][kThreads];
-
-  for (int i = tid; i < G * d; i += kThreads) {
-    const int g = i / d, j = i % d;
-    q_s[g][j] = to_f(q[b * a.q_sb + (h0 + g) * a.q_sh + j]);
-  }
-  if (tid < kMaxG) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[kMaxG];
+// 16 bytes of a staged row -> fp32
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p,
+                                       float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
-  __syncthreads();
-
-  const TKV* k_row = kc + b * a.k_sb + kvh * a.k_sh;
-  const TKV* v_row = vc + b * a.v_sb + kvh * a.v_sh;
-  const int* sp_row = a.slot_pos + b * a.sp_sb;
-
-  for (int t0 = 0; t0 < a.S; t0 += kTile) {
-    // ---- 0: visibility of the tile's slots ------------------------------
-    int vis = 0;
-    if (tid < kTile) {
-      const int slot = t0 + tid;
-      if (slot < a.S) {
-        const int sp = sp_row[slot];
-        vis = sp >= 0 && sp <= row_pos &&
-              (!a.has_window || sp > row_pos - a.window);
-      }
-      vis_s[tid] = vis;
-    }
-    if (!__syncthreads_or(vis)) continue;            // block-uniform
-
-    // ---- A: scores, one warp per slot.  The warp's K rows are loaded
-    // with no branch on memory contents, all before any is used ---------
-    {
-      TKV kraw[kSlotsPerWarp][kMaxD / 32];
-#pragma unroll
-      for (int i = 0; i < kSlotsPerWarp; ++i) {
-        const int slot = min(t0 + warp + i * kWarps, a.S - 1);
-        const TKV* kr = k_row + slot * a.k_ss;
-#pragma unroll
-        for (int jj = 0; jj < kMaxD / 32; ++jj)
-          if (jj < nj) kraw[i][jj] = kr[min(lane + 32 * jj, d - 1)];
-      }
-#pragma unroll
-      for (int i = 0; i < kSlotsPerWarp; ++i) {
-        const int t = warp + i * kWarps;
-        if (!vis_s[t]) continue;                     // warp-uniform
-#pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
-          if (g < G) {
-            float s = 0.f;
-#pragma unroll
-            for (int jj = 0; jj < kMaxD / 32; ++jj) {
-              const int j = lane + 32 * jj;
-              if (jj < nj && j < d) s += q_s[g][j] * to_f(kraw[i][jj]);
-            }
-            for (int off = 16; off > 0; off >>= 1)
-              s += __shfl_xor_sync(0xffffffffu, s, off);
-            s *= a.scale;
-            if (a.has_softcap) s = tanhf(s / a.softcap) * a.softcap;
-            if (lane == 0) p_s[g][t] = s;
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- B: online softmax, one warp per q-head ------------------------
-    if (warp < G) {
-      const int g = warp;
-      float mx = -INFINITY;
-      for (int t = lane; t < kTile; t += 32)
-        if (vis_s[t]) mx = fmaxf(mx, p_s[g][t]);
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < kTile; t += 32) {
-        const float p = vis_s[t] ? expf(p_s[g][t] - m_new) : 0.f;
-        p_s[g][t] = p;                               // 0 where not visible
-        sum += p;
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        corr_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // ---- C: acc = acc * corr + p @ V, one thread per (split, element).
-    // kUnrollC V loads are started unconditionally before any is used;
-    // slots that are not visible are masked out of the sum -------------
-    if (c_thread) {
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) acc[g] *= corr_s[g];
-      for (int t = split; t < kTile; t += kUnrollC * splits) {
-        TKV vraw[kUnrollC];
-#pragma unroll
-        for (int u = 0; u < kUnrollC; ++u) {
-          const int slot = min(t0 + t + u * splits, a.S - 1);
-          if (t + u * splits < kTile) vraw[u] = v_row[slot * a.v_ss + e];
-        }
-#pragma unroll
-        for (int u = 0; u < kUnrollC; ++u) {
-          const int tt = t + u * splits;
-          if (tt < kTile && vis_s[tt]) {
-            const float vv = to_f(vraw[u]);
-#pragma unroll
-            for (int g = 0; g < kMaxG; ++g)
-              if (g < G) acc[g] += p_s[g][tt] * vv;
-          }
-        }
-      }
-    }
-    __syncthreads();   // p_s / vis_s / corr_s are rewritten next tile
-  }
-
-  // ---- combine the splits' partial sums and normalize -----------------
-  if (c_thread) {
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
-      if (g < G) red_s[g][tid] = acc[g];
-  }
-  __syncthreads();
-  if (c_thread && split == 0) {
-    for (int g = 0; g < G; ++g) {
-      float o = 0.f;
-      for (int s = 0; s < splits; ++s) o += red_s[g][s * d + e];
-      const float l = l_s[g];
-      store_f(&out[b * a.o_sb + (h0 + g) * a.o_sh + e],
-              l > 0.f ? o / l : 0.f);
-    }
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
+struct Args {
+  Sched s;
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  // strides in elements
+  long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
+  int width;          // bytes a K/V copy
+};
+
+// bytes of the K/V ring, which the groups' partial sums reuse at the end
+template <typename TKV>
+__host__ __device__ int region_bytes(int d) {
+  constexpr int CW = 16 / static_cast<int>(sizeof(TKV));
+  const int ring = 2 * kStages * kTile * round16(d * sizeof(TKV));
+  const int red = kThreads * CW * 4;
+  return ring > red ? ring : red;
+}
+
+// fp32 q of one head, zero-padded to whole 16-byte chunks of K
+template <typename TKV>
+__host__ __device__ int q_row(int d) {
+  constexpr int CW = 16 / static_cast<int>(sizeof(TKV));
+  return (d + CW - 1) / CW * CW;
+}
+
+template <typename TQ, typename TKV, int KG>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    flash_decode_split_kernel(Args a) {
+  constexpr int CW = 16 / static_cast<int>(sizeof(TKV));   // values a chunk
+  constexpr int kSub = 8;                  // threads a slot (scores)
+  extern __shared__ __align__(16) uint8_t dyn[];
+  __shared__ Small sm;
+  const Sched s = a.s;
+  const Block k = block_of(s);
+  const int tid = threadIdx.x;
+  const int d = s.d, G = k.G;
+  const int row_bytes = d * sizeof(TKV);
+  const int rb = round16(row_bytes);             // bytes a staged row
+  const int rs = rb / static_cast<int>(sizeof(TKV));
+  const int ring = kStages * kTile * rb;
+  uint8_t* k_st = dyn;
+  uint8_t* v_st = dyn + ring;
+  float* red = reinterpret_cast<float*>(dyn);
+  const int qd = q_row<TKV>(d);
+  float* q_s = reinterpret_cast<float*>(dyn + region_bytes<TKV>(d));
+
+  const TQ* q = static_cast<const TQ*>(a.q);
+  for (int i = tid; i < G * qd; i += kThreads) {
+    const int g = i / qd, j = i - g * qd;
+    q_s[i] = j < d ? to_f(q[k.b * a.q_sb + (k.h0 + g) * a.q_sh + j]) : 0.f;
+  }
+  // the ring starts at 0: rows are copied only where visible, so a row
+  // that was never copied, and every row's tail past d, read as 0
+  for (int i = tid; i < 2 * ring / 16; i += kThreads)
+    reinterpret_cast<uint4*>(dyn)[i] = make_uint4(0, 0, 0, 0);
+  const int n_chunks = (d + CW - 1) / CW;
+  const int groups = kThreads / n_chunks;
+  const int grp = tid / n_chunks, c = tid - grp * n_chunks;
+  const bool c_thread = grp < groups;
+  const int sub = tid % kSub;
+  float acc[KG][CW], m_run[KG], lpart[KG];
+#pragma unroll
+  for (int g = 0; g < KG; ++g) {
+    m_run[g] = kNegInf;
+    lpart[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < CW; ++i) acc[g][i] = 0.f;
+  }
+  // (list_tiles' barriers order q_s and the zeroed ring before use)
+
+  const uint8_t* k_src = static_cast<const uint8_t*>(a.k) +
+                         (k.b * a.k_sb + k.kvh * a.k_sh) * sizeof(TKV);
+  const uint8_t* v_src = static_cast<const uint8_t*>(a.v) +
+                         (k.b * a.v_sb + k.kvh * a.v_sh) * sizeof(TKV);
+  const long long k_step = a.k_ss * sizeof(TKV);
+  const long long v_step = a.v_ss * sizeof(TKV);
+  const int width = a.width;
+
+  auto load = [&](int st, int t0, uint32_t mask) {
+    stage_rows(k_st + st * kTile * rb, rb, k_src, k_step, row_bytes, width,
+               t0, mask);
+    stage_rows(v_st + st * kTile * rb, rb, v_src, v_step, row_bytes, width,
+               t0, mask);
+  };
+
+  auto compute = [&](int st, int t0, uint32_t mask) {
+    const TKV* ks = reinterpret_cast<const TKV*>(k_st + st * kTile * rb);
+    const TKV* vs = reinterpret_cast<const TKV*>(v_st + st * kTile * rb);
+    // scores: kSub threads a slot, each on the chunks sub, sub + kSub, ...
+    // of its K row; every slot is scored (the softmax masks), so the
+    // shuffles run converged
+#pragma unroll
+    for (int pass = 0; pass < kTile * kSub / kThreads; ++pass) {
+      const int r = tid / kSub + pass * (kThreads / kSub);
+      const TKV* kr = ks + r * rs;
+      float dot[KG];
+#pragma unroll
+      for (int g = 0; g < KG; ++g) dot[g] = 0.f;
+#pragma unroll 4
+      for (int ch = sub; ch < n_chunks; ch += kSub) {
+        float x[CW];
+        load16(kr + ch * CW, x);
+#pragma unroll
+        for (int g = 0; g < KG; ++g) {
+          if (g < G) {
+            const float* qq = q_s + g * qd + ch * CW;
+#pragma unroll
+            for (int i = 0; i < CW; i += 4) {
+              const float4 q4 = *reinterpret_cast<const float4*>(qq + i);
+              dot[g] += q4.x * x[i] + q4.y * x[i + 1] + q4.z * x[i + 2] +
+                        q4.w * x[i + 3];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < KG; ++g)
+        if (g < G) put_score(s, sm, g, r, group_sum<kSub>(dot[g]), mask);
+    }
+    __syncthreads();
+    // PV: thread (grp, c) over the slots r = grp (mod groups), keeping the
+    // online softmax itself; a slot that is not visible adds p = 0 (its
+    // staged row is 0 or an earlier visible row: finite)
+    if (c_thread) {
+#pragma unroll
+      for (int g = 0; g < KG; ++g) {
+        if (g < G) {
+          const float corr = rescale(sm, g, m_run[g]);
+          lpart[g] *= corr;
+#pragma unroll
+          for (int i = 0; i < CW; ++i) acc[g][i] *= corr;
+        }
+      }
+#pragma unroll 4
+      for (int r = grp; r < kTile; r += groups) {
+        const bool vis = (mask >> r) & 1u;
+        float x[CW];
+        load16(vs + r * rs + c * CW, x);
+#pragma unroll
+        for (int g = 0; g < KG; ++g) {
+          if (g < G) {
+            const float p = vis ? expf(sm.p[g][r] - m_run[g]) : 0.f;
+            lpart[g] += p;
+#pragma unroll
+            for (int i = 0; i < CW; ++i) acc[g][i] += p * x[i];
+          }
+        }
+      }
+    }
+  };
+
+  const bool any = run_tiles(s, k, sm, load, compute);
+  TQ* out = static_cast<TQ*>(a.out);
+  const long long o_sb = a.o_sb, o_sh = a.o_sh;
+  finish(s, k, sm, acc, m_run, lpart, c_thread, grp, c, groups,
+         n_chunks * CW, red, any, [&](int h, int e, float x) {
+           store_f(&out[k.b * o_sb + h * o_sh + e], x);
+         });
+}
+
+template <typename TQ, typename TKV, int KG>
+int launch_heads(const Args& a, int b, cudaStream_t stream) {
+  const Sched& s = a.s;
+  const int chunks = (s.ratio + s.g_per_block - 1) / s.g_per_block;
+  const int smem =
+      region_bytes<TKV>(s.d) + s.g_per_block * q_row<TKV>(s.d) * 4;
+  auto kern = flash_decode_split_kernel<TQ, TKV, KG>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(s.hkv * chunks * s.splits, b);
+  kern<<<grid, kThreads, smem, stream>>>(a);
+  return 0;
+}
+
 template <typename TQ, typename TKV>
-void launch(const Args& a, int b, cudaStream_t stream) {
-  const int chunks = (a.ratio + a.g_per_block - 1) / a.g_per_block;
-  const dim3 grid(a.hkv * chunks, b);
-  flash_decode_kernel<TQ, TKV><<<grid, kThreads, 0, stream>>>(a);
+int launch(const Args& a, int b, cudaStream_t stream) {
+  switch (heads_of(a.s.g_per_block)) {
+    case 1: return launch_heads<TQ, TKV, 1>(a, b, stream);
+    case 2: return launch_heads<TQ, TKV, 2>(a, b, stream);
+    case 4: return launch_heads<TQ, TKV, 4>(a, b, stream);
+    default: return launch_heads<TQ, TKV, 8>(a, b, stream);
+  }
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  Output has q's dtype.
 // Strides are in elements; head_dim must be the unit-stride axis of q,
-// k, v and out.  Returns cudaGetLastError() after the launch (0 = ok).
+// k, v and out.  g_per_block (q-heads a block), splits and width (bytes a
+// K/V copy: 16, 8, 4, 2 or 1, dividing the cache's addresses, strides and
+// rows) are the wrapper's choice, checked here.  With splits > 1, ws is
+// the fp32 (b, hq, splits, d + 2) workspace and counters b * hkv *
+// ceil(hq / hkv / g_per_block) int32 that are 0 (and are left 0).
+// Returns cudaGetLastError() after the launch (0 = ok).
 extern "C" int repro_flash_decode(
     int q_dtype, int kv_dtype, const void* q, const void* k, const void* v,
-    const void* slot_pos, const void* pos, void* out, int b, int S, int hq,
-    int hkv, int d, long long q_sb, long long q_sh, long long k_sb,
+    const void* slot_pos, const void* pos, void* out, void* ws,
+    void* counters, int b, int S, int hq, int hkv, int d, int g_per_block,
+    int splits, int width, long long q_sb, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long sp_sb, long long o_sb, long long o_sh,
     float scale, int has_window, int window, int has_softcap, float softcap,
     void* stream) {
-  if (d < 1 || d > kMaxD || hkv < 1 || hq < hkv || hq % hkv != 0 ||
-      b < 0 || b > 65535 || S < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (b == 0) return 0;
   Args a;
+  Sched& s = a.s;
+  s.slot_pos = static_cast<const int*>(slot_pos);
+  s.pos = static_cast<const int*>(pos);
+  s.ws = static_cast<float*>(ws);
+  s.counters = static_cast<int*>(counters);
+  s.sp_sb = sp_sb;
+  s.S = S;
+  s.hq = hq;
+  s.hkv = hkv;
+  s.d = d;
+  s.ratio = hkv > 0 ? hq / hkv : 0;
+  s.g_per_block = g_per_block;
+  s.splits = splits;
+  s.has_window = has_window;
+  s.window = window;
+  s.has_softcap = has_softcap;
+  s.softcap = softcap;
+  s.scale = scale;
+  if (const int err = check(s, b)) return err;
+  const int item = kv_dtype == 0 ? 4 : 2;
+  const long long k_st[] = {k_sb * item, k_ss * item, k_sh * item};
+  const long long v_st[] = {v_sb * item, v_ss * item, v_sh * item};
+  if (!width_fits(width, k, k_st, 3, static_cast<long long>(d) * item) ||
+      !width_fits(width, v, v_st, 3, static_cast<long long>(d) * item))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (b == 0) return 0;
   a.q = q;
   a.k = k;
   a.v = v;
-  a.slot_pos = static_cast<const int*>(slot_pos);
-  a.pos = static_cast<const int*>(pos);
   a.out = out;
-  a.S = S;
-  a.hkv = hkv;
-  a.d = d;
-  a.ratio = hq / hkv;
-  a.g_per_block = a.ratio < kMaxG ? a.ratio : kMaxG;
   a.q_sb = q_sb;
   a.q_sh = q_sh;
   a.k_sb = k_sb;
@@ -294,22 +335,19 @@ extern "C" int repro_flash_decode(
   a.v_sb = v_sb;
   a.v_ss = v_ss;
   a.v_sh = v_sh;
-  a.sp_sb = sp_sb;
   a.o_sb = o_sb;
   a.o_sh = o_sh;
-  a.scale = scale;
-  a.has_window = has_window;
-  a.window = window;
-  a.has_softcap = has_softcap;
-  a.softcap = softcap;
+  a.width = width;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
   if (q_dtype == 0 && kv_dtype == 0)
-    launch<float, float>(a, b, st);
+    err = launch<float, float>(a, b, st);
   else if (q_dtype == 1 && kv_dtype == 1)
-    launch<__nv_bfloat16, __nv_bfloat16>(a, b, st);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(a, b, st);
   else if (q_dtype == 0 && kv_dtype == 1)
-    launch<float, __nv_bfloat16>(a, b, st);
+    err = launch<float, __nv_bfloat16>(a, b, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,10 +55,11 @@ __device__ __forceinline__ float decode(uint32_t c) {
   return __uint_as_float(sign | (biased << 23) | (m << (23 - T::mbits)));
 }
 
-// e8m0 scale byte -> 2^(code - 127); code 0 is the subnormal 2^-127
-// (ldexpf keeps it: the build uses no flush-to-zero)
+// e8m0 scale byte -> 2^(code - 127), assembled from its bits (the values
+// of ldexpf(1, code - 127)): code 0 is the subnormal 2^-127 (the build
+// uses no flush-to-zero), code 255 is +inf
 __device__ __forceinline__ float e8m0(uint32_t code) {
-  return ldexpf(1.0f, static_cast<int>(code) - 127);
+  return __uint_as_float(code ? code << 23 : 0x00400000u);
 }
 
 // the bytes of quad `qd` of a code row, little-endian in one word.  fp8

@@ -5,8 +5,11 @@
 The kernel is CUDA C++ (``repro_torch/csrc/flash_decode_quant.cu``),
 built for sm_90a at first use and bound with ctypes (see ``_build``).
 It reads the packed codes and e8m0 scale bytes of the model's cache
-layout (b, S, hkv, stored_d) as they lie, through their strides, and
-expands each quad of values to fp32 in registers.
+layout (b, S, hkv, stored_d) as they lie, through their strides, stages
+them in shared memory and expands each quad of values to fp32 in
+registers.  Its schedule is the dense kernel's: :func:`plan` checks the
+inputs and chooses the split count and the copy widths (codes, scales)
+through ``flash_decode``'s ``schedule`` and ``copy_width``.
 
 :func:`flash_decode_quant` dispatches on the device of its tensors: on
 the CPU it runs :func:`flash_decode_quant_plain`; on a CUDA device it
@@ -25,10 +28,13 @@ import torch
 
 from repro_torch import compat, lowbits
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_decode import (
+    Plan, copy_width, ptr_or_none, schedule, scratch)
 from repro_torch.models.attention import cache_kv, decode_attention
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+             + [ctypes.c_int] * 10
              + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
@@ -46,9 +52,14 @@ def flash_decode_quant_plain(q: torch.Tensor, kv_cache: dict,
                             window=window, softcap=softcap, scale=scale)
 
 
-def _kernel(q, kv, pos, fmt, window, softcap, scale):
-    kq, ks, vq, vs, sp = (kv[n] for n in ("k_q", "k_s", "v_q", "v_s",
-                                          "slot_pos"))
+def plan(q: torch.Tensor, kv_cache: dict, pos: torch.Tensor, fmt: str,
+         sms: int) -> Plan:
+    """Checks a call's inputs, raising on what the kernel does not take,
+    and returns how the kernel runs it on a card of ``sms`` SMs (widths:
+    codes, then scales).  Reads shapes, dtypes, strides and addresses
+    only, on any device."""
+    kq, ks, vq, vs, sp = (kv_cache[n] for n in ("k_q", "k_s", "v_q", "v_s",
+                                                "slot_pos"))
     b, one, hq, d = q.shape
     _, S, hkv, stored_d = kq.shape
     spec = compat.dtype_spec(fmt)
@@ -85,13 +96,20 @@ def _kernel(q, kv, pos, fmt, window, softcap, scale):
                              f"(strides {t.stride()})")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    # an fp8 / fp4 quad (4 values) is loaded as one aligned 4- / 2-byte word
-    align = {8: 4, 4: 2}.get(spec.bits, 1)
-    for name, t in (("k_q", kq), ("v_q", vq)):
-        if t.data_ptr() % align or any(st % align for st in t.stride()[:3]):
-            raise ValueError(f"{name}: {fmt} codes must be {align}-byte "
-                             f"aligned (address and strides)")
+    # the rows are staged whole, so any alignment works: the copies are
+    # as wide as the addresses, strides and row bytes allow
+    widths = (copy_width((kq, vq), stored_d), copy_width((ks, vs), d // blk))
+    return schedule(b, S, hq, hkv, d, sms, widths)
+
+
+def _kernel(q, kv, pos, fmt, window, softcap, scale):
     lib = _build.load("flash_decode_quant")
+    pl = plan(q, kv, pos, fmt, compat.sm_count(q.device.index))
+    kq, ks, vq, vs, sp = (kv[n] for n in ("k_q", "k_s", "v_q", "v_s",
+                                          "slot_pos"))
+    b, _, hq, d = q.shape
+    _, S, hkv, _ = kq.shape
+    blk = d // ks.shape[3]
     fn = lib.repro_flash_decode_quant
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
@@ -103,14 +121,17 @@ def _kernel(q, kv, pos, fmt, window, softcap, scale):
         vs.stride(0), vs.stride(1), vs.stride(2),
         sp.stride(0), out.stride(0), out.stride(2))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        stream = torch.cuda.current_stream(q.device)
+        ws, counters = scratch(pl, q.device, stream)
         err = fn(
             _DTYPE_CODE[q.dtype], lowbits.CUDA_FORMAT_ID[fmt], q.data_ptr(),
             kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
             vs.data_ptr(), sp.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            b, S, hq, hkv, d, blk, ctypes.cast(strides, ctypes.c_void_p),
+            ptr_or_none(ws), ptr_or_none(counters), b, S, hq, hkv, d, blk,
+            pl.g_per_block, pl.splits, *pl.widths,
+            ctypes.cast(strides, ctypes.c_void_p),
             scale, window is not None, window or 0, softcap is not None,
-            softcap or 0.0, stream)
+            softcap or 0.0, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode_quant kernel launch failed: CUDA "
                            f"error {err}")

@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -91,11 +90,6 @@ def plan(m: int, n: int, k: int, sms: int) -> Plan:
     if tiles < sms:
         splits = max(1, min(2 * sms // tiles, steps // 4))
     return Plan("narrow", splits, (splits, m, n) if splits > 1 else None)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def quantize_for_qmatmul(w: torch.Tensor, fmt: str
@@ -158,7 +152,7 @@ def _launch(fmt: str, x, w, scales, n: int, out_dtype, what: str):
         raise ValueError(f"{what}: weight rows must be {align}-byte aligned")
     lib = _build.load("qmatmul")
     # fp32 x: repro_qmatmul runs the CUDA-core kernel (by x's dtype)
-    pl = (plan(m, n, k, _sms(x.device.index))
+    pl = (plan(m, n, k, compat.sm_count(x.device.index))
           if x.dtype == torch.bfloat16 else None)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):

@@ -10,7 +10,11 @@ this file there without the conftest:
 Tolerances.  ``flash_decode`` / ``flash_decode_quant``, by the q (and
 dequantized cache) dtype: fp32 atol=rtol=1e-5 (summation order); bf16
 atol 2e-2 (the plain version rounds p to bf16 before PV, as the
-reference does; the kernel keeps p in fp32).  ``qmatmul`` /
+reference does; the kernel keeps p in fp32).  Their split schedule is
+held to the same tolerances on its edges (rows whose visible slots lie
+in one split, S not a multiple of splits x tile, the most splits, a
+wrapped window across splits, every split of a row empty, copies
+narrower than 16 bytes), and two calls must give the same bits.  ``qmatmul`` /
 ``qmatmul_packed``: fp32 output rtol 1e-5, atol 1e-4 * sqrt(k / 1024)
 (only the summation order differs); bf16 output within 2 bf16 ulps of
 the plain version plus that fp32 tolerance; packed bit-identical to the
@@ -39,15 +43,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import compat
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels.flash_decode import plan as fd_plan
 from repro_torch.kernels import probe_chase as pc
 from repro_torch.kernels import probe_dep_chain as pdc
 from repro_torch.kernels import probe_mma as pm
 from repro_torch.kernels.flash_decode_quant import (
     flash_decode_quant, flash_decode_quant_plain)
+from repro_torch.kernels.flash_decode_quant import plan as fdq_plan
 from repro_torch.kernels.qmatmul import (
     pack_for_qmatmul, plan, qmatmul, qmatmul_packed, qmatmul_packed_plain,
     qmatmul_plain, quantize_for_qmatmul, wgmma_unit_tile)
@@ -145,6 +152,79 @@ def test_strided_cache_and_launch_count(cuda):
     _check(q, k.transpose(1, 2).contiguous().transpose(1, 2),
            v.transpose(1, 2).contiguous().transpose(1, 2), sp, pos)
     assert flash_decode.launches == before + 1
+
+
+# the split schedule: splits_for from the shapes alone, the S axis split
+# round-robin by 32-slot tile, the splits combined in the launch
+SPLIT_CASES = {
+    # name: (b, S, hq, hkv, d, pos, ring, window)
+    # every visible slot in tile 0: one split works, the others are empty
+    "one_split_rows": (4, 512, 8, 8, 64, [0, 5, 20, 31], False, None),
+    # S not a multiple of splits x tile (32 splits of a 1000-slot row)
+    "S_1000": (2, 1000, 4, 2, 64, [999, 420], False, None),
+    "S_333": (3, 333, 4, 2, 32, [332, 100, 250], False, None),
+    # one row, one kv-head: the most splits (128 of 4096 slots)
+    "long_row_S4096": (1, 4096, 8, 1, 128, [4095], False, None),
+    # a 300-slot window of a wrapped 512-slot ring, across the splits
+    "window_wrapped": (4, 512, 8, 4, 64, [3000, 2000, 1500, 700], True,
+                       300),
+}
+
+
+def _split_case(name, seed, q_dtype, kv_dtype):
+    b, S, hq, hkv, d, pos, ring, window = SPLIT_CASES[name]
+    x = _inputs(seed, b, S, hq, hkv, d, q_dtype, kv_dtype, pos, ring=ring)
+    return x, dict(window=window)
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+@pytest.mark.parametrize("dtypes", [(F32, F32), (BF16, BF16)],
+                         ids=["f32", "bf16"])
+def test_split_edges(cuda, name, dtypes):
+    (q, k, v, sp, pos), flags = _split_case(name, len(name), *dtypes)
+    assert fd_plan(q, k, v, sp, pos, compat.sm_count(0)).splits > 1
+    _check(q, k, v, sp, pos, **flags)
+
+
+def test_split_row_with_every_split_empty(cuda):
+    """A row with no visible slot in any split comes out 0, the others
+    as the plain version says."""
+    q, k, v, sp, pos = _inputs(12, 4, 1024, 8, 8, 64, BF16, BF16,
+                               pos=[1023, 300, 40, 700])
+    sp[2] = -1
+    assert fd_plan(q, k, v, sp, pos, compat.sm_count(0)).splits > 1
+    _check(q, k, v, sp, pos)
+
+
+@pytest.mark.parametrize("dtype,pad,width", [
+    (BF16, 1, 2), (BF16, 2, 4), (BF16, 4, 8), (F32, 1, 4), (F32, 2, 8)])
+def test_narrow_copies(cuda, dtype, pad, width):
+    """A cache view into rows of d + pad elements: copies as wide as the
+    row stride allows, the same results."""
+    q, k, v, sp, pos = _inputs(13, 3, 300, 8, 4, 128, dtype, dtype,
+                               pos=[299, 150, 31])
+    kp = torch.zeros((3, 300, 4, 128 + pad), dtype=dtype, device="cuda")
+    vp = torch.zeros_like(kp)
+    kp[..., :128], vp[..., :128] = k, v
+    k, v = kp[..., :128], vp[..., :128]
+    assert fd_plan(q, k, v, sp, pos, compat.sm_count(0)).widths == (width,)
+    _check(q, k, v, sp, pos)
+
+
+def test_two_calls_bit_identical_and_counters_reset(cuda):
+    """The splits are combined in split order, whatever the order of
+    arrival: two calls give the same bits, and so does a third after a
+    call of another grid (its counters are back at 0)."""
+    a = _inputs(14, 8, 1024, 16, 16, 128, BF16, BF16,
+                pos=list(range(100, 1001, 128)))
+    other = _inputs(15, 1, 4096, 8, 1, 128, BF16, BF16, pos=[4095])
+    first = flash_decode(*a)
+    second = flash_decode(*a)
+    flash_decode(*other)
+    third = flash_decode(*a)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    assert torch.equal(first.view(torch.int16), third.view(torch.int16))
 
 
 def test_engine_card_matches_cpu(cuda):
@@ -245,6 +325,55 @@ def test_quant_strided_pool_view_and_launch_count(cuda):
     before = flash_decode_quant.launches
     _check_quant(q, layer, pos, fmt)
     assert flash_decode_quant.launches == before + 1
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_quant_split_edges(cuda, fmt, name):
+    b, S, hq, hkv, d, pos, ring, window = SPLIT_CASES[name]
+    q, kv, pos = _quant_inputs(len(name), fmt, b, S, hq, hkv, d, BF16, pos,
+                               ring=ring)
+    assert fdq_plan(q, kv, pos, fmt, compat.sm_count(0)).splits > 1
+    _check_quant(q, kv, pos, fmt, window=window)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_quant_split_row_with_every_split_empty(cuda, fmt):
+    q, kv, pos = _quant_inputs(12, fmt, 4, 1024, 8, 8, 64, F32,
+                               pos=[1023, 300, 40, 700])
+    kv["slot_pos"][2] = -1
+    _check_quant(q, kv, pos, fmt)
+
+
+@pytest.mark.parametrize("fmt,pad,widths", [
+    ("float8_e4m3fn", 1, (1, 1)), ("float8_e5m2", 4, (4, 4)),
+    ("float6_e2m3fn", 8, (8, 4)), ("float4_e2m1fn", 2, (2, 2))])
+def test_quant_narrow_copies(cuda, fmt, pad, widths):
+    """Code and scale rows as views into rows ``pad`` bytes longer."""
+    q, kv, pos = _quant_inputs(13, fmt, 3, 300, 8, 4, 128, BF16,
+                               pos=[299, 150, 31])
+    for name in ("k_q", "k_s", "v_q", "v_s"):
+        t = kv[name]
+        buf = torch.zeros((*t.shape[:3], t.shape[3] + pad),
+                          dtype=torch.uint8, device="cuda")
+        buf[..., :t.shape[3]] = t.view(torch.uint8)
+        kv[name] = buf[..., :t.shape[3]].view(t.dtype)
+    assert fdq_plan(q, kv, pos, fmt, compat.sm_count(0)).widths == widths
+    _check_quant(q, kv, pos, fmt)
+
+
+@pytest.mark.parametrize("fmt", ["float8_e4m3fn", "float4_e2m1fn"])
+def test_quant_two_calls_bit_identical_and_counters_reset(cuda, fmt):
+    a = _quant_inputs(14, fmt, 8, 1024, 16, 16, 128, BF16,
+                      pos=list(range(100, 1001, 128)))
+    other = _quant_inputs(15, fmt, 1, 4096, 8, 1, 128, BF16, pos=[4095])
+    first = flash_decode_quant(*a, fmt=fmt)
+    second = flash_decode_quant(*a, fmt=fmt)
+    flash_decode_quant(*other, fmt=fmt)
+    third = flash_decode_quant(*a, fmt=fmt)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    assert torch.equal(first.view(torch.int16), third.view(torch.int16))
 
 
 # --------------------------------------------------------------------- #
