@@ -56,11 +56,13 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    constants fma and multiply-add round alike, see
    ``probe_dep_chain.assert_chain_close``; mixed2 only up to chain 40,
    where no float -> int32 convert overflows; fp64 within (n + 1)
-   ulps); ``mma_probe`` in bf16 and fp32
-   (TF32) at ilp 1/2/4 and (m, k, n) = (256, 256, 128), (128, 128, 128)
-   (bf16 out: within 1 bf16 ulp + 1e-5 sqrt(k); TF32: atol 2^-8 sqrt(k),
-   eight standard deviations of the operands' TF32 rounding for N(0, 1)
-   inputs) and the fp32-out products the sweep runs (atol 1e-5 sqrt(k)).
+   ulps); ``mma_probe`` in bf16, fp16 and fp32 (TF32) at ilp 1..8 and
+   (m, k, n) = (256, 256, 128), (128, 128, 128) and (48, 48, 72) (off
+   the kernel's 32 x 32 block tile), y broadcast over the products as
+   ``mma_probe`` passes it (bf16 / fp16 out: within 1 ulp of the type +
+   1e-5 sqrt(k); TF32: atol 2^-8 sqrt(k), eight standard deviations of
+   the operands' TF32 rounding for N(0, 1) inputs) and the fp32-out
+   products the sweep runs, also at (48, 48, 72) (atol 1e-5 sqrt(k)).
    At the characterize path's shapes it times each kernel, its plain
    version and, for ``mma_probe``, ``torch.bmm`` in bf16 (a yardstick);
 1e. ``ssd_scan`` against ``ssd_scan_plain`` (``models.ssm.ssd_chunked``)
@@ -73,7 +75,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    oracle), a bf16 y also one bf16 ulp.  It times (a) and (b), kernel
    and plain version, beside the least time the card could take; no
    PyTorch call computes an SSD scan, so there is no yardstick;
-1f. ``flash_attention`` against ``flash_attention_plain`` (the
+1f. ``wgmma.cuh``'s A-from-registers form with an MN-major B (the
+   P V product of the bf16 kernel) on a unit tile, (64, k) @ (k, n) for
+   k = 16 .. 64 and n = 64, 128, against an fp32 product (atol 1e-5);
+   then ``flash_attention`` against ``flash_attention_plain`` (the
    reference's ``attention()`` dispatch): (a) gptneox-1b's shape b 8,
    s 2048, hq = hkv = 16, d 128, bf16, causal; (b) the same in fp32; (c)
    GQA 32/8 with d 64, sq 384 over skv 1000; (d) window 256 with softcap
@@ -733,17 +738,19 @@ def _probe_counters():
 
 
 def _check_mma(case, got, want, k, kind):
-    """``kind`` "bf16": bf16 out, within 1 bf16 ulp + 1e-5 sqrt(k);
-    "tf32": fp32 inputs rounded to TF32, atol 2^-8 sqrt(k); "fp32": bf16
-    inputs, fp32 out (summation order only), atol 1e-5 sqrt(k)."""
+    """``kind`` "bf16" / "fp16": bf16 / fp16 out, within 1 ulp of the type
+    + 1e-5 sqrt(k); "tf32": fp32 inputs rounded to TF32, atol 2^-8
+    sqrt(k); "fp32": bf16 inputs, fp32 out (summation order only), atol
+    1e-5 sqrt(k)."""
     if not torch.isfinite(got).all():
         raise AssertionError(f"{case}: kernel output is not finite")
     g, w = got.float(), want.float()
     diff = (g - w).abs()
-    if kind == "bf16":
-        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+    if kind in ("bf16", "fp16"):
+        bits = 8 if kind == "bf16" else 11
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - bits)
         tol = ulp + 1e-5 * math.sqrt(k)
-        label = "1 bf16 ulp + 1e-5 sqrt(k)"
+        label = f"1 {kind} ulp + 1e-5 sqrt(k)"
     elif kind == "tf32":
         tol = torch.full_like(w, 2.0 ** -8 * math.sqrt(k))
         label = "2^-8 sqrt(k)"
@@ -824,20 +831,29 @@ def phase1d_probes(model):
     log(f"[probe] completion-latency launch: 4096 threads in blocks of "
         f"{pdc.MAX_BLOCK}; threads per SM {per_sm}")
 
-    # mma_probe
-    for dt in (torch.bfloat16, torch.float32):
-        for ilp in (1, 2, 4):
-            for m, k, n in ((256, 256, 128), (128, 128, 128)):
+    # mma_probe: every dtype and ilp, shapes on and off the block tile,
+    # y broadcast over the products (mma_probe passes y.expand)
+    kinds = {torch.bfloat16: "bf16", torch.float16: "fp16",
+             torch.float32: "tf32"}
+    for dt, kind in kinds.items():
+        for ilp in range(1, 9):
+            for m, k, n in ((256, 256, 128), (128, 128, 128), (48, 48, 72)):
                 g = torch.Generator(device="cuda").manual_seed(m + ilp)
                 x = torch.randn((ilp, m, k), generator=g, device="cuda")
                 y = torch.randn((k, n), generator=g, device="cuda")
                 x, y = x.to(dt), y.to(dt)
-                got = pm.mma_probe(x, y, ilp=ilp)
+                got = pm.mma_probe(x, y, bm=16, bn=8, bk=16, ilp=ilp)
                 torch.cuda.synchronize()
-                kind = "bf16" if dt == torch.bfloat16 else "tf32"
                 _check_mma(f"{kind} mma_probe ilp {ilp} {m}x{k}x{n}", got,
                            pm.mma_probe_plain(x, y, dt), k, kind)
     g = torch.Generator(device="cuda").manual_seed(3)
+    for shape in ((5, 3, 48, 48), (5, 3, 48, 72)):
+        a = torch.randn(shape[:3] + (48,), generator=g,
+                        device="cuda").bfloat16()
+        b = torch.randn(shape[:2] + (48, shape[3]), generator=g,
+                        device="cuda").bfloat16()
+        _check_mma(f"bf16 products {shape}", pm.mma_products(a, b),
+                   pm.mma_probe_plain(a, b, torch.float32), 48, "fp32")
     a = torch.randn((16, 4, 128, 128), generator=g, device="cuda").bfloat16()
     b = torch.randn((16, 4, 128, 128), generator=g, device="cuda").bfloat16()
     got = pm.mma_products(a, b)
@@ -1059,10 +1075,21 @@ def phase1f_flash_attention(model):
     then the times at (a) and (b): kernel, plain version and SDPA with
     ``is_causal`` (a yardstick; the port never calls it)."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_plain, wgmma_rs_unit_tile)
     hbm, peak_bf16 = model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"]
     peak_f32 = model.vector_flops["float32"]
     bf16, f32 = torch.bfloat16, torch.float32
+    for n in (64, 128):
+        for kk in (16, 32, 48, 64):
+            g = torch.Generator(device="cuda").manual_seed(kk + n)
+            a = torch.randn((64, kk), generator=g, device="cuda").to(bf16)
+            b = torch.randn((kk, n), generator=g, device="cuda").to(bf16)
+            got = wgmma_rs_unit_tile(a, b)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, a.float() @ b.float(),
+                                       rtol=1e-5, atol=1e-5)
+    log("[kernel] wgmma.cuh MmaRS + desc_sw128_mn unit tile: (64, k) @ "
+        "(k, n), k 16..64, n 64 / 128, within atol 1e-5 of fp32")
     gptneox = dict(b=8, sq=2048, skv=2048, hq=16, hkv=16, d=128)
     cases = {
         "a_gptneox_bf16": (dict(gptneox, seed=51, dtype=bf16), {}),

@@ -25,39 +25,73 @@
 //     with the same test on q_offset and the window), which halves a
 //     causal prefill's work; only the tiles on the mask's edge pay the
 //     per-element mask;
-//   * bf16 runs on the tensor cores: mma.sync m16n8k16 with fp32
-//     accumulation, fragments fed by ldmatrix from padded shared tiles
-//     (conflict-free rows), P kept in registers between the two
-//     products (FA2); cp.async copies the next K tile during this
-//     tile's products and the next V tile during the next QK^T (one V
-//     buffer: three blocks an SM at d = 128); scores in log2 units with
-//     the scale folded in, so p is one ex2;
-//   * fp32 runs on the CUDA cores in fp32 (no TF32: the conformance
-//     tests hold it to 2e-5 of the plain version), as 4x4 register
-//     micro-tiles over transposed shared tiles (float4 loads);
 //   * q tiles of one (b, head) are issued heaviest first (the causal
-//     tail has the most K/V tiles), so the last wave is short.
-// Not yet done (later work): wgmma and TMA, warp specialisation, a
-// persistent schedule, 128-row q tiles.
+//     tail has the most K/V tiles), so the last wave is short.  bf16
+//     takes the (b, head) pairs in groups of `head_group` whose K and V
+//     fit the L2 cache together, every q tile of a group before the
+//     next group (heaviest first within it): a head's K/V tiles then come
+//     from device memory about once, not once per q tile.
 //
-// Tiles: 64 query rows a block.  bf16: 4 warps, 16 rows each; K/V tiles
-// of 64 keys (32 at head_dim 256, to bound the registers of the output
-// accumulators).  fp32: 256 threads, 64-key tiles.  head_dim d <= 256,
-// a multiple of 8 (bf16) or 4 (fp32); the tiles are padded to the next
-// of 64 / 128 / 256 with zeros.  Rows past sq or skv are zero-filled on
-// load and masked (no padded copies in device memory).
+// bf16 (flash_attention_tc_kernel), after FlashAttention-3's plan:
+//   * a block takes 128 query rows: two consumer warpgroups of 64 rows
+//     and one producer warpgroup, of which one thread issues every copy
+//     by TMA and the rest exit; setmaxnreg moves the producer's
+//     registers to the consumers (24 against 240 a thread);
+//   * TMA reads q, k and v through 4-D maps (d, head, s, b) over the
+//     model layout as it is, in boxes of 64 values of d (128 bytes,
+//     128-byte swizzle, the layout wgmma reads) x 128 rows (q) or BK keys
+//     (k, v); the maps' zero fill pads a ragged last tile and d up to
+//     64, 128 or 256, so no padded copy is ever made.  Q goes in once;
+//     K and V tiles fill a ring of kStages stages, each tile with a
+//     "full" mbarrier (the copies' bytes) and an "empty" one (both
+//     warpgroups done with it): K is freed once Q K^T has read it, V
+//     once P V has;
+//   * S = Q K^T by wgmma m64nBKk16, both operands in shared memory, both
+//     K-major (wgmma.cuh Mma<BK>); scores in log2 units with the scale
+//     folded in, so p is one ex2; the online softmax keeps each row's
+//     max and sum over the 4 threads that share it;
+//   * O += P V by wgmma with A from registers (wgmma.cuh MmaRS): S's
+//     fp32 accumulator fragment, packed pairwise to bf16, is already the
+//     A operand of the next k16 slice, so P never touches shared memory;
+//     V is the B operand, MN-major (d contiguous), read through
+//     desc_sw128_mn;
+//   * each warpgroup overlaps its own work (FlashAttention-3's
+//     intra-warpgroup pipeline): tile j + 1's Q K^T is issued before
+//     tile j's P V, and tile j + 1's softmax runs while P V of tile j is
+//     still on the tensor cores; the two warpgroups interleave besides;
+//   * BK = 128 keys a tile at d <= 128, 64 at d = 256 (the output
+//     accumulators take 128 registers a thread there); 2 stages: 80 KB
+//     of shared memory at d 64, 160 KB at 128, 192 KB at 256, one block
+//     an SM.
+//   The tensor cores' fp32 accumulation truncates; at these depths (d
+//   values a score, one tile of keys a product into O) that is far inside
+//   the bf16 tolerance.
+//
+// fp32 (flash_attention_f32_kernel) runs on the CUDA cores in fp32 (no
+// TF32: the conformance tests hold it to 2e-5 of the plain version), 64
+// query rows a block of 256 threads, as 4x4 register micro-tiles over
+// transposed shared tiles (float4 loads), K/V tiles of 64 keys, d padded
+// to 64 / 128 / 256 with zeros.
+//
+// Not yet done (later work): ping-pong ordering of the two consumer
+// warpgroups' products, a persistent schedule, a TMA store of the
+// output, a tensor-core fp32 leg.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int kBq = 64;          // query rows per block
 constexpr float kNegInf = -INFINITY;
 
 struct Args {
+  CUtensorMap tq, tk, tv;   // TMA maps of q, k, v (bf16 kernel)
   const void* q;
   const void* k;
   const void* v;
@@ -68,6 +102,7 @@ struct Args {
   float scale;
   int causal, has_window, window, has_softcap;
   float softcap;
+  int head_group;           // bf16: (b, head) pairs a group of the grid
 };
 
 // The K/V tiles [j_begin, j_end) a q tile must visit (the others are
@@ -109,51 +144,8 @@ __device__ __forceinline__ float softcapped(const Args& a, float s) {
 }
 
 // ===================================================================== //
-// bf16: tensor cores (mma.sync m16n8k16, fp32 accumulation)
+// bf16: wgmma, TMA-fed K/V, warp-specialized
 // ===================================================================== //
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !in_range.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in_range) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in_range ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -169,222 +161,319 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows x D tile of bf16 (row stride D + 8: 16-byte rows land on distinct
-// bank groups for ldmatrix) from global rows [r0, r0 + rows), zero-filled
-// past n_rows and past d.  128 threads.
+// The bf16 kernel's shape at padded head_dim D (64, 128, 256).  Shared
+// memory, each piece on a 1024-byte boundary: the q tile (D / 64 column
+// blocks of 128 rows x 128 bytes), then kStages K tiles and kStages V
+// tiles (D / 64 column blocks of kBK rows x 128 bytes each), then the
+// mbarriers: q, then for K and for V a "full" and an "empty" barrier a
+// stage.
 template <int D>
-__device__ __forceinline__ void load_tile_async(
-    __nv_bfloat16* dst, const __nv_bfloat16* base, long long row_stride,
-    int r0, int rows, int n_rows, int d) {
-  constexpr int kChunks = D / 8;                    // 16-byte chunks a row
-  for (int i = threadIdx.x; i < rows * kChunks; i += 128) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool in = r0 + r < n_rows && c < d;
-    const __nv_bfloat16* src =
-        base + (in ? (long long)(r0 + r) * row_stride + c : 0);
-    cp_async16(dst + r * (D + 8) + c, src, in);
-  }
-}
+struct Tc {
+  static constexpr int kRows = 128;               // query rows a block
+  static constexpr int kBK = D == 256 ? 64 : 128; // keys a tile
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = 384;            // 2 consumer WGs + 1
+  static constexpr int kCols = D / 64;            // 64-wide column blocks
+  static constexpr int kQ = kRows * D * 2;        // bytes of the q tile
+  static constexpr int kKV = kBK * D * 2;         // bytes of a K (V) tile
+  static constexpr int kKOff = kQ;
+  static constexpr int kVOff = kKOff + kStages * kKV;
+  static constexpr int kBarOff = kVOff + kStages * kKV;
+  static constexpr int kBytes = kBarOff + (1 + 4 * kStages) * 8 + 1024;
+  static constexpr int kPV = D < 128 ? D : 128;   // N of one P V product
+  static constexpr int kPVs = D / kPV;            // P V products a slice
+};
 
-template <int D, int BK>
-__global__ void __launch_bounds__(128) flash_attention_bf16_kernel(Args a) {
-  constexpr int kLd = D + 8;                        // shared row stride
-  constexpr int kNT = BK / 8;                       // S n-tiles per warp
-  constexpr int kDT = D / 8;                        // O n-tiles per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + kBq * kLd;             // 2 buffers
-  __nv_bfloat16* v_s = k_s + 2 * BK * kLd;          // 1 buffer
+template <int D>
+__global__ void __launch_bounds__(Tc<D>::kThreads, 1)
+    flash_attention_tc_kernel(const __grid_constant__ Args a) {
+  using T = Tc<D>;
+  constexpr int kBK = T::kBK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (tma::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;
+  uint8_t* ks = smem + T::kKOff;
+  uint8_t* vs = smem + T::kVOff;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + T::kBarOff);
+  uint64_t* kfull = qbar + 1;                     // K tile landed
+  uint64_t* vfull = kfull + T::kStages;           // V tile landed
+  uint64_t* kempty = vfull + T::kStages;          // K tile read by both
+  uint64_t* vempty = kempty + T::kStages;         // V tile read by both
 
-  const int n_qt = gridDim.y;
-  const int qt = n_qt - 1 - blockIdx.y;             // heaviest first
-  const int bh = blockIdx.x;
+  // block -> (b * hq + head, q tile): group of head_group pairs, then
+  // the q tile (heaviest first), then the pair within the group
+  const int n_qt = (a.sq + T::kRows - 1) / T::kRows;
+  const int bh_all = gridDim.x / n_qt;
+  const int group = blockIdx.x / (a.head_group * n_qt);
+  const int in_group = min(a.head_group, bh_all - group * a.head_group);
+  const int rank = blockIdx.x - group * a.head_group * n_qt;
+  const int qt = n_qt - 1 - rank / in_group;
+  const int bh = group * a.head_group + rank % in_group;
   const int bi = bh / a.hq, h = bh % a.hq, kvh = h / a.ratio;
-  const int q0 = qt * kBq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) +
-                            bi * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) +
-                            bi * a.k_sb + kvh * a.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) +
-                            bi * a.v_sb + kvh * a.v_sh;
-
+  const int q0 = qt * T::kRows;
   const int q_lo = a.q_offset + q0;
-  const int q_hi = a.q_offset + min(q0 + kBq, a.sq) - 1;
+  const int q_hi = a.q_offset + min(q0 + T::kRows, a.sq) - 1;
   int jb, je;
-  kv_range(a, q_lo, q_hi, BK, &jb, &je);
+  kv_range(a, q_lo, q_hi, kBK, &jb, &je);
 
-  // this thread's two rows (g and g + 8 of the warp's 16)
-  const int row0 = q0 + warp * 16 + g;
-  const int pos0 = a.q_offset + row0, pos1 = pos0 + 8;
-  const int w_lo = a.q_offset + q0 + warp * 16;     // the warp's rows
-  const int w_hi = w_lo + 15;
-
-  // scores are kept in log2 units: x = log2(e) * softcap(scale * q.k),
-  // so p = 2^(x - m) is one ex2 (the scale folded into one multiply)
-  const float x_mul = (a.has_softcap ? a.scale / a.softcap : a.scale);
-  const float x_cap = a.softcap * kLog2e;
-  const float x_lin = a.scale * kLog2e;
-
-  float o[kDT][4];
-#pragma unroll
-  for (int i = 0; i < kDT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  // cp.async groups, in order: [q, K(jb)], [V(jb)], then per tile j:
-  // [K(j + 1)] at its start and [V(j + 1)] at its end.  K is double-
-  // buffered (the next tile's K lands during this tile's products); V
-  // has one buffer (it lands during the next tile's QK^T), which keeps
-  // shared memory to three blocks an SM at d = 128.
-  load_tile_async<D>(q_s, qg, a.q_ss, q0, kBq, a.sq, a.d);
-  if (jb < je) load_tile_async<D>(k_s, kg, a.k_ss, jb * BK, BK, a.skv, a.d);
-  cp_async_commit();
-  if (jb < je) load_tile_async<D>(v_s, vg, a.v_ss, jb * BK, BK, a.skv, a.d);
-  cp_async_commit();
-
-  for (int j = jb; j < je; ++j) {
-    const int buf = (j - jb) & 1;
-    const bool next = j + 1 < je;
-    if (next) {                                     // prefetch K(j + 1)
-      load_tile_async<D>(k_s + (buf ^ 1) * BK * kLd, kg, a.k_ss,
-                         (j + 1) * BK, BK, a.skv, a.d);
-      cp_async_commit();
-      cp_async_wait<2>();                           // K(j) has landed
-    } else {
-      cp_async_wait<1>();
+  if (threadIdx.x == 0) {
+    tma::mbar_init(qbar, 1);
+    for (int s = 0; s < T::kStages; ++s) {
+      tma::mbar_init(kfull + s, 1);    // the producer's arrival + bytes
+      tma::mbar_init(vfull + s, 1);
+      tma::mbar_init(kempty + s, 2);   // one arrival a consumer warpgroup
+      tma::mbar_init(vempty + s, 2);
     }
-    __syncthreads();
-    const __nv_bfloat16* kt = k_s + buf * BK * kLd;
-    const int k0 = j * BK;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // ---- S = Q K^T for the warp's 16 rows x BK keys ------------------
-    float s[kNT][4];
+  if (threadIdx.x >= 256) {                       // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256 && jb < je) {    // else the tile sees no key
+      tma::mbar_expect(qbar, T::kQ);
 #pragma unroll
-    for (int i = 0; i < kNT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      for (int c = 0; c < T::kCols; ++c)
+        tma::tma_4d(qs + c * T::kRows * 128, &a.tq, 64 * c, h, q0, bi, qbar);
+      // K and V of a stage are freed apart: K once both warpgroups'
+      // Q K^T is done, V once their P V is
+      for (int i = 0; i < je - jb; ++i) {
+        const int st = i % T::kStages, ph = (i / T::kStages - 1) & 1;
+        const int k0 = (jb + i) * kBK;
+        if (i >= T::kStages) tma::mbar_wait(kempty + st, ph);
+        tma::mbar_expect(kfull + st, T::kKV);
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t af[4];
-      ldmatrix_x4(af, q_s + (warp * 16 + (lane & 15)) * kLd + ks * 16 +
-                          (lane >> 4) * 8);
+        for (int c = 0; c < T::kCols; ++c)
+          tma::tma_4d(ks + st * T::kKV + c * kBK * 128, &a.tk, 64 * c, kvh,
+                      k0, bi, kfull + st);
+        if (i >= T::kStages) tma::mbar_wait(vempty + st, ph);
+        tma::mbar_expect(vfull + st, T::kKV);
 #pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * kLd +
-                            ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], af, bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], af, bf[2], bf[3]);
+        for (int c = 0; c < T::kCols; ++c)
+          tma::tma_4d(vs + st * T::kKV + c * kBK * 128, &a.tv, 64 * c, kvh,
+                      k0, bi, vfull + st);
       }
     }
+    return;
+  }
 
-    // ---- scale, softcap, mask; online softmax on rows g, g + 8 --------
-    const bool full = tile_full(a, w_lo, w_hi, k0, BK);
+  // ---- the consumer warpgroups ------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this thread's rows: row0 and row0 + 8 (registers 4 i + 0, 1 and
+  // 4 i + 2, 3 of every accumulator)
+  const int row0 = q0 + 64 * wg + 16 * warp + g;
+  const int pos0 = a.q_offset + row0, pos1 = pos0 + 8;
+  const int w_lo = a.q_offset + q0 + 64 * wg + 16 * warp;  // the warp's
+  const int w_hi = w_lo + 15;                               // rows
+
+  // the softmax's constants (see softmax below)
+  const float x_mul = a.scale / a.softcap;
+  const float x_cap = a.softcap * kLog2e;
+  const float xs = a.has_softcap ? 1.f : a.scale * kLog2e;
+
+  // descriptors: this warpgroup's 64 q rows of column block 0; K and V of
+  // stage 0, column block 0 (16-byte units are added to step across)
+  const uint64_t dq = wgmma::desc_sw128(qs + 64 * wg * 128);
+  const uint64_t dk = wgmma::desc_sw128(ks);
+  const uint64_t dv = wgmma::desc_sw128_mn(vs, kBK * 128);
+
+  float o[T::kPVs][T::kPV / 2];
+#pragma unroll
+  for (int n = 0; n < T::kPVs; ++n)
+#pragma unroll
+    for (int i = 0; i < T::kPV / 2; ++i) o[n][i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float s[kBK / 2];                               // S of one tile
+  uint32_t p[kBK / 16][4];                        // P of one tile, bf16
+
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out) + bi * a.o_sb +
+                      h * a.o_sh;
+  // out rows row0, row0 + 8 = o / l (0 where l == 0)
+  auto store = [&]() {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
+    const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+#pragma unroll
+    for (int n = 0; n < T::kPVs; ++n)
+#pragma unroll
+      for (int r = 0; r < T::kPV / 2; r += 4) {
+        const int col = n * T::kPV + 2 * r + 2 * t;   // 8 (r / 4) + 2 t
+        if (col >= a.d) continue;
+        if (row0 < a.sq)
+          *reinterpret_cast<__nv_bfloat162*>(og + row0 * a.o_ss + col) =
+              __floats2bfloat162_rn(o[n][r] * inv0, o[n][r + 1] * inv0);
+        if (row0 + 8 < a.sq)
+          *reinterpret_cast<__nv_bfloat162*>(og + (row0 + 8) * a.o_ss +
+                                             col) =
+              __floats2bfloat162_rn(o[n][r + 2] * inv1, o[n][r + 3] * inv1);
+      }
+  };
+  if (jb >= je) {          // no visible key in the tile: zeros (no copies
+    store();               // were issued)
+    return;
+  }
+
+  // S = Q K_j^T into s (64 rows x kBK keys, d / 16 slices): one group
+  auto issue_s = [&](int j) {
+    const int st = (j - jb) % T::kStages;
+#pragma unroll
+    for (int ks16 = 0; ks16 < D / 16; ++ks16) {
+      const int c = ks16 / 4;                     // column block of d
+      wgmma::Mma<kBK>::run(
+          ks16 > 0, s,
+          wgmma::advance(dq + (c * T::kRows * 128 >> 4), ks16 % 4),
+          wgmma::advance(dk + ((st * T::kKV + c * kBK * 128) >> 4),
+                         ks16 % 4));
+    }
+    wgmma::commit();
+  };
+  // O += P V_j (kBK / 16 slices of keys, A from registers): one group
+  auto issue_pv = [&](int j) {
+    const int st = (j - jb) % T::kStages;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int n = 0; n < T::kPVs; ++n)
+        wgmma::MmaRS<T::kPV>::run(
+            1, o[n], p[kk],
+            wgmma::advance_mn(
+                dv + ((st * T::kKV + n * (T::kPV / 64) * kBK * 128) >> 4),
+                kk));
+    wgmma::commit();
+  };
+  // Tile j's softcap, mask and online softmax on rows g, g + 8: s becomes
+  // the tile's exponentials, m and l move on, c0 / c1 rescale o.  The
+  // softcap and the mask are warp-uniform loops of their own: a plain
+  // tile spends one fmax, one fma and one ex2 an element.  Scores in
+  // log2 units are x = xs * s: with a softcap s is first replaced by
+  // log2(e) * softcap * tanh(scale * s / softcap) and xs = 1, else xs =
+  // log2(e) * scale folds into the fma of the exponent.
+  auto softmax = [&](int j, float& c0, float& c1) {
+    const int k0 = j * kBK;
+    if (a.has_softcap) {
+#pragma unroll
+      for (int r = 0; r < kBK / 2; ++r) s[r] = tanhf(s[r] * x_mul) * x_cap;
+    }
+    if (!tile_full(a, w_lo, w_hi, k0, kBK)) {
+#pragma unroll
+      for (int r = 0; r < kBK / 2; ++r)
+        if (!visible(a, (r & 2) ? pos1 : pos0,
+                     k0 + 8 * (r >> 2) + 2 * t + (r & 1)))
+          s[r] = kNegInf;
+    }
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = a.has_softcap ? tanhf(s[nt][e] * x_mul) * x_cap
-                                : s[nt][e] * x_lin;
-        if (!full &&
-            !visible(a, e < 2 ? pos0 : pos1, k0 + nt * 8 + 2 * t + (e & 1)))
-          x = kNegInf;
-        s[nt][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * nt], s[4 * nt + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
     }
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {        // the quad of a row
+    for (int off = 1; off <= 2; off <<= 1) {      // the quad of a row
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
     // a row with nothing visible yet has m = -inf: subtract 0 instead,
     // so its p = 2^-inf = 0 and acc = l = 0 stay (no inf - inf)
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float mn0 = fmaxf(m0, mx0 * xs), mn1 = fmaxf(m1, mx1 * xs);
     const float mu0 = mn0 == kNegInf ? 0.f : mn0;
     const float mu1 = mn1 == kNegInf ? 0.f : mn1;
-    const float c0 = ex2(m0 - mu0), c1 = ex2(m1 - mu1);
+    c0 = ex2(m0 - mu0);
+    c1 = ex2(m1 - mu1);
     m0 = mn0;
     m1 = mn1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      s[nt][0] = ex2(s[nt][0] - mu0);
-      s[nt][1] = ex2(s[nt][1] - mu0);
-      s[nt][2] = ex2(s[nt][2] - mu1);
-      s[nt][3] = ex2(s[nt][3] - mu1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
+    for (int r = 0; r < kBK / 2; ++r) {
+      s[r] = ex2(fmaf(s[r], xs, (r & 2) ? -mu1 : -mu0));
+      if (r & 2)
+        sum1 += s[r];
+      else
+        sum0 += s[r];
     }
-    l0 = l0 * c0 + sum0;                            // per-thread partials
+    l0 = l0 * c0 + sum0;                          // per-thread partials
     l1 = l1 * c1 + sum1;
+  };
+  // registers 8 kk .. 8 kk + 7 of S, packed pairwise: the A fragment of
+  // keys 16 kk .. 16 kk + 15 (wgmma.cuh MmaRS)
+  auto pack = [&]() {
 #pragma unroll
-    for (int dt = 0; dt < kDT; ++dt) {
-      o[dt][0] *= c0;
-      o[dt][1] *= c0;
-      o[dt][2] *= c1;
-      o[dt][3] *= c1;
-    }
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  };
+  // landed: wait for tile j's K (V) copies; release: this warpgroup is
+  // done with them (one of the two arrivals that free the stage)
+  auto landed = [&](uint64_t* bar, int j) {
+    tma::mbar_wait(bar + (j - jb) % T::kStages,
+                   ((j - jb) / T::kStages) & 1);
+  };
+  auto release = [&](uint64_t* bar, int j) {
+    if (threadIdx.x % 128 == 0)
+      tma::mbar_arrive(bar + (j - jb) % T::kStages);
+  };
 
-    // ---- O += P V: P's accumulators become the A fragments ------------
-    if (next) cp_async_wait<1>();                   // V(j) has landed
-    else cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, v_s + (kk * 16 + (lane & 7) +
-                                     ((lane >> 3) & 1) * 8) * kLd +
-                                  dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], pf, vf[0], vf[1]);
-        mma_bf16(o[2 * dp + 1], pf, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();              // every warp is done with K(j), V(j)
-    if (next) {
-      load_tile_async<D>(v_s, vg, a.v_ss, (j + 1) * BK, BK, a.skv, a.d);
-      cp_async_commit();
-    }
+  // The pipeline, FlashAttention-3's intra-warpgroup overlap: tile j + 1's
+  // Q K^T is issued before tile j's P V, and runs on the tensor cores
+  // while this warpgroup waits for it; tile j + 1's softmax then runs
+  // while P V of tile j is still in flight.  No product sits behind a
+  // branch: the first S and the last P V are peeled out of the loop.
+  tma::mbar_wait(qbar, 0);
+  landed(kfull, jb);
+  wgmma::fence();
+  issue_s(jb);
+  wgmma::wait<0>();
+  wgmma::fence_operands(s);
+  release(kempty, jb);
+  {
+    float c0, c1;                                 // o is 0: no rescale
+    softmax(jb, c0, c1);
   }
-  cp_async_wait<0>();             // the q tile's copy when no tile ran
-
-  // ---- normalize and store -------------------------------------------
+  pack();
+  for (int j = jb; j + 1 < je; ++j) {
+    landed(kfull, j + 1);
+    landed(vfull, j);
+    wgmma::fence();
+    issue_s(j + 1);
+    issue_pv(j);
+    wgmma::wait<1>();                             // S of tile j + 1
+    wgmma::fence_operands(s);
+    release(kempty, j + 1);
+    float c0, c1;
+    softmax(j + 1, c0, c1);
+    wgmma::wait<0>();                             // P V of tile j
 #pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
-  const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out) + bi * a.o_sb +
-                      h * a.o_sh;
+    for (int n = 0; n < T::kPVs; ++n) wgmma::fence_operands(o[n]);
+    release(vempty, j);
 #pragma unroll
-  for (int dt = 0; dt < kDT; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (col < a.d) {
-      if (row0 < a.sq)
-        *reinterpret_cast<__nv_bfloat162*>(og + row0 * a.o_ss + col) =
-            __floats2bfloat162_rn(o[dt][0] * inv0, o[dt][1] * inv0);
-      if (row0 + 8 < a.sq)
-        *reinterpret_cast<__nv_bfloat162*>(og + (row0 + 8) * a.o_ss + col) =
-            __floats2bfloat162_rn(o[dt][2] * inv1, o[dt][3] * inv1);
-    }
+    for (int n = 0; n < T::kPVs; ++n)
+#pragma unroll
+      for (int r = 0; r < T::kPV / 2; ++r) o[n][r] *= (r & 2) ? c1 : c0;
+    pack();
   }
+  landed(vfull, je - 1);
+  wgmma::fence();
+  issue_pv(je - 1);
+  wgmma::wait<0>();
+#pragma unroll
+  for (int n = 0; n < T::kPVs; ++n) wgmma::fence_operands(o[n]);
+  release(vempty, je - 1);
+  store();
 }
 
 // ===================================================================== //
 // fp32: CUDA cores, 4x4 register micro-tiles
 // ===================================================================== //
 
+constexpr int kBq = 64;          // query rows per block
 constexpr int kF32Threads = 256;
 constexpr int kBk32 = 64;        // keys per tile
 constexpr int kLdT = 68;         // row stride of the transposed tiles
@@ -569,28 +658,111 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, int threads, size_t smem, const Args& a, int b,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(b * a.hq, (a.sq + kBq - 1) / kBq);
-  kernel<<<grid, threads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+
+// A check of wgmma.cuh's MmaRS and desc_sw128_mn: one warpgroup computes
+// d (64, N) fp32 = a (64, k) @ b (k, N) for bf16 a (row-major, row
+// stride k) and b (row-major, row stride N: N contiguous, MN-major), k a
+// multiple of 16 up to 64, N 64 or 128.  b is stored as N / 64 column
+// blocks of 64 k rows x 128 bytes, swizzled, zero past k (lbo = 64 x
+// 128 bytes); a's fragments are loaded from device memory straight into
+// the registers MmaRS reads; k / 16 products, the first with scale-d 0.
+template <int N>
+__global__ void __launch_bounds__(128) wgmma_rs_unit_kernel(
+    const __nv_bfloat16* a, const __nv_bfloat16* b, float* d, int k) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sb =
+      smem_raw + ((1024 - (tma::smem_addr(smem_raw) & 1023)) & 1023);
+  constexpr int kLbo = 64 * 128;
+  for (int i = threadIdx.x; i < (N / 64) * 64 * 8; i += 128) {
+    const int blk = i / 512, r = (i / 8) % 64, c = i % 8;
+    *reinterpret_cast<uint4*>(sb + blk * kLbo + wgmma::sw128(r, c)) =
+        r < k ? *reinterpret_cast<const uint4*>(b + r * N + blk * 64 + 8 * c)
+              : make_uint4(0, 0, 0, 0);
+  }
+  wgmma::fence_proxy_async();
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = 16 * warp + lane / 4, col = 2 * (lane % 4);
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  const uint64_t db = wgmma::desc_sw128_mn(sb, kLbo);
+  uint32_t frag[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int kc = 16 * j + col + 8 * (r >> 1), rr = row + 8 * (r & 1);
+      frag[j][r] = kc < k ? *reinterpret_cast<const uint32_t*>(
+                                a + rr * k + kc)
+                          : 0u;
+    }
+  wgmma::fence_operands(acc);
+  wgmma::fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)   // the slices past k are zeros
+    wgmma::MmaRS<N>::run(j > 0, acc, frag[j], wgmma::advance_mn(db, j));
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operands(acc);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int r = row + 8 * ((i >> 1) & 1);
+    const int c = 8 * (i >> 2) + col + (i & 1);
+    d[r * N + c] = acc[i];
+  }
 }
 
-template <int D, int BK>
-int launch_bf16(const Args& a, int b, cudaStream_t st) {
-  const size_t smem = sizeof(__nv_bfloat16) * (D + 8) * (kBq + 3 * BK);
-  return launch(flash_attention_bf16_kernel<D, BK>, 128, smem, a, b, st);
+// the TMA map of q, k or v: (d, heads, s, b) with byte strides of a
+// head, a position and a batch row, boxes of 64 values x `rows`; a
+// stride of a dimension of extent 1 is never followed and is replaced by
+// 16 bytes, which TMA takes
+bool fa_map(CUtensorMap* map, const void* base, int d, int heads, int s,
+            int b, long long sh, long long ss, long long sb, int rows) {
+  const long long dim[4] = {d, heads, s, b};
+  const long long stride[3] = {heads > 1 ? 2 * sh : 16, s > 1 ? 2 * ss : 16,
+                               b > 1 ? 2 * sb : 16};
+  const int box[4] = {64, 1, rows, 1};
+  return tma::make_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dim,
+                          stride, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int D>
+int launch_tc(const Args& args, int b, cudaStream_t st) {
+  using T = Tc<D>;
+  Args a = args;
+  const int hkv = a.hq / a.ratio;
+  // with skv 0 no K / V tile is ever copied, but a map needs extent 1
+  const int kv_len = a.skv > 0 ? a.skv : 1;
+  if (!fa_map(&a.tq, a.q, a.d, a.hq, a.sq, b, a.q_sh, a.q_ss, a.q_sb,
+              T::kRows) ||
+      !fa_map(&a.tk, a.k, a.d, hkv, kv_len, b, a.k_sh, a.k_ss, a.k_sb,
+              T::kBK) ||
+      !fa_map(&a.tv, a.v, a.d, hkv, kv_len, b, a.v_sh, a.v_ss, a.v_sb,
+              T::kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tc_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(b) * a.hq *
+                           ((a.sq + T::kRows - 1) / T::kRows);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  flash_attention_tc_kernel<D>
+      <<<static_cast<unsigned>(blocks), T::kThreads, T::kBytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32(const Args& a, int b, cudaStream_t st) {
-  const size_t smem = sizeof(float) * kLdT * (2 * D + kBk32);
-  return launch(flash_attention_f32_kernel<D>, kF32Threads, smem, a, b, st);
+  const int smem = sizeof(float) * kLdT * (2 * D + kBk32);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_f32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(b * a.hq, (a.sq + kBq - 1) / kBq);
+  flash_attention_f32_kernel<D><<<grid, kF32Threads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -598,23 +770,29 @@ int launch_f32(const Args& a, int b, cudaStream_t st) {
 // dtype code: 0 = float32, 1 = bfloat16 (q, k, v and out alike).
 // Strides are in elements; head_dim must be the unit-stride axis, d a
 // multiple of 8 (bf16) or 4 (fp32), every stride a multiple of that and
-// the pointers 16-byte aligned (the wrapper checks).  Returns
-// cudaGetLastError() after the launch (0 = ok).
+// the pointers 16-byte aligned (the wrapper checks; bf16 also needs
+// every stride of an extent above 1 positive, for TMA).  head_group (>=
+// 1): the bf16 grid's (b, head) pairs a group (kernels/flash_attention.py
+// plan chooses it; the fp32 grid is (b * hq, q tiles)).  Returns
+// cudaGetLastError() after the launch (0 = ok), cudaErrorInvalidValue
+// for what the kernels do not take.
 extern "C" int repro_flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* out, int b,
     int sq, int skv, int hq, int hkv, int d, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, float scale, int causal, int has_window,
-    int window, int has_softcap, float softcap, int q_offset, void* stream) {
+    int window, int has_softcap, float softcap, int q_offset, int head_group,
+    void* stream) {
   const int vec = dtype == 1 ? 8 : 4;
   if (d < 1 || d > 256 || d % vec != 0 || hkv < 1 || hq < hkv ||
       hq % hkv != 0 || b < 0 || sq < 0 || skv < 0 || q_offset < 0 ||
       (has_window && window < 1) || (sq + kBq - 1) / kBq > 65535 ||
+      head_group < 1 ||
       (long long)b * hq > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || sq == 0) return 0;
-  Args a;
+  Args a{};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -643,11 +821,12 @@ extern "C" int repro_flash_attention(
   a.window = window;
   a.has_softcap = has_softcap;
   a.softcap = softcap;
+  a.head_group = head_group;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (d <= 64) return launch_bf16<64, 64>(a, b, st);
-    if (d <= 128) return launch_bf16<128, 64>(a, b, st);
-    return launch_bf16<256, 32>(a, b, st);
+    if (d <= 64) return launch_tc<64>(a, b, st);
+    if (d <= 128) return launch_tc<128>(a, b, st);
+    return launch_tc<256>(a, b, st);
   }
   if (dtype == 0) {
     if (d <= 64) return launch_f32<64>(a, b, st);
@@ -655,4 +834,22 @@ extern "C" int repro_flash_attention(
     return launch_f32<256>(a, b, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a (64, k), b (k, n) bf16 row-major and 16-byte aligned, d (64, n) fp32;
+// k in 16, 32, 48, 64, n in 64, 128.
+extern "C" int repro_wgmma_rs_unit(const void* a, const void* b, void* d,
+                                   int k, int n, void* stream) {
+  if (k < 16 || k > 64 || k % 16 || (n != 64 && n != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* pa = static_cast<const __nv_bfloat16*>(a);
+  const auto* pb = static_cast<const __nv_bfloat16*>(b);
+  float* pd = static_cast<float*>(d);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int smem = (n / 64) * 64 * 128 + 1024;
+  if (n == 64)
+    wgmma_rs_unit_kernel<64><<<1, 128, smem, st>>>(pa, pb, pd, k);
+  else
+    wgmma_rs_unit_kernel<128><<<1, 128, smem, st>>>(pa, pb, pd, k);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -80,6 +80,7 @@
 #include <stdint.h>
 
 #include "lowbits.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -188,15 +189,11 @@ __global__ void __launch_bounds__(kThreads) qmatmul_f32_kernel(Args a) {
 constexpr int kTK = 64;        // values of k a step: one 128-byte bf16 row
 constexpr int kNarrowM = 64;   // the most rows of x a narrow block takes
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // one copy of g bytes (16, 8, 4: cp.async, zero-filled when !ok; 2, 1:
 // plain load and store, for rows too ragged for cp.async)
 __device__ __forceinline__ void copy_piece(uint8_t* dst, const uint8_t* src,
                                            int g, bool ok) {
-  const uint32_t d = smem_addr(dst);
+  const uint32_t d = tma::smem_addr(dst);
   const int n = ok ? g : 0;
   if (g == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
@@ -215,41 +212,6 @@ __device__ __forceinline__ void copy_piece(uint8_t* dst, const uint8_t* src,
 }
 
 __device__ __forceinline__ int log2i(int v) { return 31 - __clz(v); }
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(count) : "memory");
-}
-
-// this thread's arrival, announcing `bytes` of TMA copies to come
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// a 2-D tile of a TMA map at (inner c0, row c1) into shared memory,
-// completing on bar; out-of-range elements arrive as zeros
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
-          smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
-      "r"(c1), "r"(smem_addr(bar)) : "memory");
-}
 
 // The kernel's shape: WR weight rows and XR x rows a block, kStages
 // stages in the ring.  SWAP: A = the expanded weights (narrow), else x.
@@ -290,12 +252,12 @@ __device__ __forceinline__ void load_step(const Args& a, int t, int x0,
   const int kv = min(kTK, a.k - t * kTK);        // 64, or 32 at a last half
   // TMA, whole boxes: rows and k past the end arrive as zeros
   if (lane == 0) {
-    mbar_expect(bar, (a.tma_x ? T::kX : 0) + (a.tma_w ? T::kW : 0) +
-                         (a.tma_s ? T::kS : 0));
-    if (a.tma_x) tma_2d(xs, &a.tx, t * kTK, x0, bar);
-    if (a.tma_w) tma_2d(wb, &a.tw, t * T::kCodeB, w0, bar);
+    tma::mbar_expect(bar, (a.tma_x ? T::kX : 0) + (a.tma_w ? T::kW : 0) +
+                              (a.tma_s ? T::kS : 0));
+    if (a.tma_x) tma::tma_2d(xs, &a.tx, t * kTK, x0, bar);
+    if (a.tma_w) tma::tma_2d(wb, &a.tw, t * T::kCodeB, w0, bar);
     // scales 4 (t / 2) .. + 3: a box starts on 16 bytes
-    if (a.tma_s) tma_2d(sb, &a.ts, (t >> 1) * 4, w0, bar);
+    if (a.tma_s) tma::tma_2d(sb, &a.ts, (t >> 1) * 4, w0, bar);
   }
   if (!a.tma_x) {  // x: 2 kv bytes a row into the stage's swizzled rows;
                    // a half step's second half is zero-filled
@@ -345,7 +307,7 @@ __device__ __forceinline__ void load_step(const Args& a, int t, int x0,
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     wgmma::fence_proxy_async();
   }
-  mbar_arrive(bar);
+  tma::mbar_arrive(bar);
 }
 
 // the staged codes of one step, decoded (lowbits::decode8), scaled in
@@ -397,7 +359,8 @@ __global__ void __launch_bounds__(Tc<F, WR, XR, SWAP>::kThreads,
     qmatmul_tc_kernel(const __grid_constant__ Args a) {
   using T = Tc<F, WR, XR, SWAP>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* smem =
+      smem_raw + ((1024 - (tma::smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* tiles = smem;
   uint8_t* xs = smem + T::kXOff;
   uint8_t* wbs = smem + T::kWOff;
@@ -408,8 +371,8 @@ __global__ void __launch_bounds__(Tc<F, WR, XR, SWAP>::kThreads,
   lowbits::bf16_table<F>(lut, threadIdx.x, T::kThreads);
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::kStages; ++s) {
-      mbar_init(bars + s, 33);       // stage s filled: the producer warp
-      mbar_init(empty + s, 1);       // stage s free: the consumers
+      tma::mbar_init(bars + s, 33);   // stage s filled: the producer warp
+      tma::mbar_init(empty + s, 1);   // stage s free: the consumers
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -430,7 +393,8 @@ __global__ void __launch_bounds__(Tc<F, WR, XR, SWAP>::kThreads,
     const int lane = threadIdx.x - T::kConsumers;
     for (int i = 0; i < nt; ++i) {
       const int st = i % T::kStages;
-      if (i >= T::kStages) mbar_wait(empty + st, (i / T::kStages - 1) & 1);
+      if (i >= T::kStages)
+        tma::mbar_wait(empty + st, (i / T::kStages - 1) & 1);
       load_step<F, WR, XR, SWAP>(a, t0 + i, x0, w0, xs + st * T::kX,
                                  wbs + st * T::kW, sbs + st * WR * 4,
                                  bars + st, lane);
@@ -447,7 +411,7 @@ __global__ void __launch_bounds__(Tc<F, WR, XR, SWAP>::kThreads,
     const int st = i % T::kStages;
     const int kv = min(kTK, a.k - (t0 + i) * kTK);
     uint8_t* tile = tiles + (i & 1) * T::kTile;
-    mbar_wait(bars + st, (i / T::kStages) & 1);   // step i's copies landed
+    tma::mbar_wait(bars + st, (i / T::kStages) & 1);  // step i's copies landed
     expand<F, WR, XR, SWAP>(wbs + st * T::kW, sbs + st * WR * 4, lut, tile,
                             kv, t0 + i);
     wgmma::fence_proxy_async();
@@ -458,7 +422,7 @@ __global__ void __launch_bounds__(Tc<F, WR, XR, SWAP>::kThreads,
     // the consumers only: tile i written, stage i - 1 free
     asm volatile("bar.sync 1, %0;\n" ::"n"(T::kConsumers) : "memory");
     if (threadIdx.x == 0 && i > 0)
-      mbar_arrive(empty + (i - 1) % T::kStages);
+      tma::mbar_arrive(empty + (i - 1) % T::kStages);
     const uint8_t* xt = xs + st * T::kX;
     const uint64_t da = wgmma::desc_sw128((SWAP ? tile : xt) + wgi * 64 * 128);
     const uint64_t db = wgmma::desc_sw128(SWAP ? xt : tile);
@@ -532,53 +496,6 @@ __global__ void qmatmul_reduce_kernel(Args a) {
   store_out(a, static_cast<int>(i / a.n), static_cast<int>(i % a.n), s);
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no
-// -lcuda at build time)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a row-major (rows, cols) matrix with a row stride of `ld` bytes, read
-// in boxes of (box_rows, box_cols); false where TMA cannot take it
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-              long long rows, long long cols,
-              long long ld, int box_rows, int box_cols,
-              CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 || ld % 16)
-    return false;
-  const cuuint64_t dim[2] = {static_cast<cuuint64_t>(cols),
-                             static_cast<cuuint64_t>(rows)};
-  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(ld)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estride[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dim, stride, box, estride,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int F, int WR, int XR, bool SWAP>
 int launch_tc(const Args& args, dim3 grid, cudaStream_t st) {
   using T = Tc<F, WR, XR, SWAP>;
@@ -586,13 +503,16 @@ int launch_tc(const Args& args, dim3 grid, cudaStream_t st) {
   // x: boxes of XR rows x 64 bf16, swizzled as wgmma reads them; codes:
   // WR rows x one step's bytes; scales: WR rows x 4 (16 bytes, the least
   // box)
-  a.tma_x = make_map(&a.tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.m,
-                     a.k, a.ldx * 2, XR, kTK, CU_TENSOR_MAP_SWIZZLE_128B);
-  a.tma_w = make_map(&a.tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, a.n,
-                     static_cast<long long>(a.k) * lowbits::Fmt<F>::bits / 8,
-                     a.ldw, WR, T::kCodeB, CU_TENSOR_MAP_SWIZZLE_NONE);
-  a.tma_s = make_map(&a.ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.scales, a.n,
-                     a.k / kBK, a.lds * 4, WR, 4, CU_TENSOR_MAP_SWIZZLE_NONE);
+  a.tma_x = tma::make_map(&a.tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x,
+                          a.m, a.k, a.ldx * 2, XR, kTK,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+  a.tma_w = tma::make_map(
+      &a.tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, a.n,
+      static_cast<long long>(a.k) * lowbits::Fmt<F>::bits / 8, a.ldw, WR,
+      T::kCodeB, CU_TENSOR_MAP_SWIZZLE_NONE);
+  a.tma_s = tma::make_map(&a.ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.scales,
+                          a.n, a.k / kBK, a.lds * 4, WR, 4,
+                          CU_TENSOR_MAP_SWIZZLE_NONE);
   const cudaError_t err = cudaFuncSetAttribute(
       qmatmul_tc_kernel<F, WR, XR, SWAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
@@ -769,7 +689,8 @@ extern "C" int repro_qmatmul_reduce(int out_dtype, const void* part,
 __global__ void __launch_bounds__(128) wgmma_unit_kernel(
     const __nv_bfloat16* a, const __nv_bfloat16* b, float* d, int k) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sa = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* sa =
+      smem_raw + ((1024 - (tma::smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* sb = sa + 64 * 128;
   for (int i = threadIdx.x; i < 192 * 8; i += 128) {
     const int r = i / 8, c = i % 8;

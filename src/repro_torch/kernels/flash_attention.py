@@ -6,8 +6,12 @@ The kernel is CUDA C++ (``repro_torch/csrc/flash_attention.cu``), built
 for sm_90a at first use and bound with ctypes (see ``_build``).  It reads
 the model layout q (b, sq, hq, d), k / v (b, skv, hkv, d) through their
 strides and masks ragged sq and skv itself: no transposed or padded
-copies.  bf16 runs on the tensor cores (fp32 accumulation), fp32 on the
-CUDA cores in fp32.
+copies.  bf16 runs on the tensor cores (``wgmma``, fp32 accumulation,
+K/V tiles brought by TMA over the model layout: 128 query rows a
+block), fp32 on the CUDA cores in fp32 (64 rows a block).  :func:`plan`
+checks a call's inputs and returns its launch (tiles, stages, grid,
+shared memory, the order of the q tiles); it reads shapes, dtypes,
+strides and addresses only, so the CPU tests reach it.
 
 :func:`flash_attention` dispatches on the device of its tensors: on the
 CPU it runs :func:`flash_attention_plain` (``models.attention.attention``,
@@ -27,8 +31,9 @@ never produces such a row (causal rows always see themselves).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,8 +45,60 @@ _VEC = {torch.float32: 4, torch.bfloat16: 8}    # elements per 16 bytes
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p])
 MAX_D = 256                                     # csrc/flash_attention.cu
+SMEM_LIMIT = 232448                     # bytes a block may use on an H100
+# K and V bytes of the (b, head) pairs whose q tiles the bf16 grid runs
+# together: a third of the H100's 50 MB L2, so a head's K/V tiles stay
+# there while its q tiles read them
+GROUP_KV_BYTES = 16 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernel runs a call (``csrc/flash_attention.cu``): ``rows``
+    query rows a block, K/V tiles of ``bk`` keys in a ring of ``stages``,
+    head_dim padded to ``d_pad``; ``blocks`` blocks over ``pairs`` (batch
+    row, q head) pairs x ``q_tiles`` tiles of queries, issued as
+    :meth:`block` says."""
+    d_pad: int
+    rows: int
+    bk: int
+    stages: int
+    threads: int
+    smem_bytes: int
+    pairs: int = 0
+    q_tiles: int = 0
+    head_group: int = 1
+
+    @property
+    def blocks(self) -> int:
+        return self.pairs * self.q_tiles
+
+    def block(self, i: int) -> Tuple[int, int]:
+        """(b * hq + head, q tile) of the i-th block: pairs in groups of
+        ``head_group``, every q tile of a group (heaviest, the last,
+        first) before the next group."""
+        group, rank = divmod(i, self.head_group * self.q_tiles)
+        in_group = min(self.head_group, self.pairs - group * self.head_group)
+        return (group * self.head_group + rank % in_group,
+                self.q_tiles - 1 - rank // in_group)
+
+
+def tile_shape(dtype: torch.dtype, d: int) -> Plan:
+    """The kernel's tile for ``dtype`` at head_dim ``d`` (no grid yet).
+    bf16: 128 rows, two consumer warpgroups and a producer; K/V tiles of
+    128 keys (64 at d 256), 2 stages; shared memory 1024-aligned q, K and
+    V tiles, 9 mbarriers, 1024 bytes of alignment slack.  fp32: 64 rows,
+    256 threads, 64-key tiles of transposed rows of 68 floats."""
+    d_pad = 64 if d <= 64 else 128 if d <= 128 else 256
+    if dtype == torch.bfloat16:
+        bk, stages = (64 if d_pad == 256 else 128), 2
+        smem = 128 * d_pad * 2 + 2 * stages * bk * d_pad * 2 \
+            + (1 + 4 * stages) * 8 + 1024
+        return Plan(d_pad, 128, bk, stages, 384, smem)
+    return Plan(d_pad, 64, 64, 1, 256, 4 * 68 * (2 * d_pad + 64))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -100,12 +157,44 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{name}: strides {t.stride()} and the data "
                              f"pointer must be multiples of 16 bytes")
+        if q.dtype == torch.bfloat16 and any(
+                s <= 0 for s, n in zip(t.stride()[:3], t.shape[:3])
+                if n > 1):
+            raise ValueError(f"{name}: TMA reads bf16 tiles through "
+                             f"positive strides; got strides {t.stride()} "
+                             f"for shape {tuple(t.shape)}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def _kernel(q, k, v, causal, window, softcap, scale, q_offset):
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         window: Optional[int], q_offset: int) -> Plan:
+    """Checks a call's inputs (:func:`check_kernel_inputs`) and returns how
+    the kernel runs it: one block per (batch row, q head, tile of
+    ``rows`` queries), the tiles of a (batch row, head) issued from the
+    last (the causal tail, with the most K/V tiles) to the first.  bf16
+    takes the pairs in groups whose K and V come to about
+    ``GROUP_KV_BYTES`` (a whole number of GQA groups); fp32 in one group
+    (its grid is (b * hq, q tiles))."""
     check_kernel_inputs(q, k, v, window, q_offset)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    shape = tile_shape(q.dtype, d)
+    n_qt = -(-sq // shape.rows)
+    if -(-sq // 64) > 65535 or b * hq * n_qt > 2 ** 31 - 1:
+        raise ValueError(f"kernel takes at most 65535 q tiles of 64 rows "
+                         f"and 2^31 - 1 blocks (b={b}, sq={sq}, hq={hq})")
+    if q.dtype == torch.bfloat16:
+        per_kv_head = 2 * max(skv, 1) * d * q.element_size()
+        group = max(1, GROUP_KV_BYTES // per_kv_head) * (hq // hkv)
+    else:
+        group = b * hq
+    return dataclasses.replace(shape, pairs=b * hq, q_tiles=n_qt,
+                               head_group=max(1, min(group, b * hq)))
+
+
+def _kernel(q, k, v, causal, window, softcap, scale, q_offset):
+    pl = plan(q, k, v, window, q_offset)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     lib = _build.load("flash_attention")
@@ -119,12 +208,40 @@ def _kernel(q, k, v, causal, window, softcap, scale, q_offset):
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], scale, bool(causal), window is not None,
                  window or 0, softcap is not None, softcap or 0.0, q_offset,
-                 stream)
+                 pl.head_group, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
     return out
+
+
+def wgmma_rs_unit_tile(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The check of ``csrc/wgmma.cuh``'s ``MmaRS`` (A from registers) and
+    ``desc_sw128_mn`` (B MN-major): ``a (64, k) @ b (k, n)`` in fp32 for
+    bf16 CUDA tensors, k in 16, 32, 48, 64 and n in 64, 128, by one
+    warpgroup's k / 16 products over b stored MN-major and swizzled."""
+    k, n = b.shape
+    if (a.shape != (64, k) or k not in (16, 32, 48, 64) or n not in (64, 128)
+            or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+            or a.device.type != "cuda" or b.device != a.device):
+        raise ValueError(f"wgmma_rs_unit_tile: needs bf16 CUDA a (64, k), "
+                         f"b (k, n), k in 16..64 by 16, n 64 or 128; got "
+                         f"{tuple(a.shape)} {a.dtype}, {tuple(b.shape)} "
+                         f"{b.dtype} on {a.device}")
+    a, b = a.contiguous(), b.contiguous()
+    d = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    fn = _build.load("flash_attention").repro_wgmma_rs_unit
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), k, n,
+                 torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wgmma_rs_unit_tile launch failed: CUDA error "
+                           f"{err}")
+    return d
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

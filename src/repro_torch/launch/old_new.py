@@ -8,12 +8,16 @@ its own that builds that tree's kernels.
         --new . [--out build/old_new.json]
 
 Phases: ``1`` (``flash_decode``), ``1b`` (``flash_decode_quant``), ``1c``
-(``qmatmul`` / ``qmatmul_packed``).  Run it by path, not with ``-m``:
-each child imports ``chip_smoke`` and ``repro_torch`` from its own tree.
-It prints each run's timed cases (kernel, plain and PyTorch-call ms, the
-bound, max |err|), then one line per case with the times of every run
-(a case one tree does not time shows "-"), and the card's name and power
-limit.  It fails if a phase fails in either tree.
+(``qmatmul`` / ``qmatmul_packed``), ``1d`` (the probe kernels; with it,
+the Fig 4/5 sweep: ``mma_products`` in bf16 at 128^3 over batch 1, 2,
+4, 8, 16, 32 x ilp 1, 2, 4, 6, 8, the kernel's device time and TFLOP/s
+at each point), ``1f`` (``flash_attention``).  Phases 1-1c take the HBM
+rate and the bf16 peak, 1d and 1f the device model.  Run it by path,
+not with ``-m``: each child imports ``chip_smoke`` and ``repro_torch``
+from its own tree.  It prints each run's timed cases (kernel, plain and
+PyTorch-call ms, the bound, max |err|), then one line per case with the
+times of every run (a case one tree does not time shows "-"), and the
+card's name and power limit.  It fails if a phase fails in either tree.
 """
 
 from __future__ import annotations
@@ -26,12 +30,46 @@ import sys
 
 MARK = "OLD_NEW_RESULT "
 ORDER = ("old", "new", "new", "old")
-# phase -> (chip_smoke function, kernel sources it builds)
-PHASES = {"1": ("phase1_flash_decode", ("flash_decode",)),
-          "1b": ("phase1b_flash_decode_quant", ("flash_decode_quant",)),
-          "1c": ("phase1c_qmatmul", ("qmatmul",))}
+# phase -> (chip_smoke function, kernel sources it builds, its
+# arguments: "rates" (HBM bytes/s, bf16 peak) or "model" (device model))
+PHASES = {"1": ("phase1_flash_decode", ("flash_decode",), "rates"),
+          "1b": ("phase1b_flash_decode_quant", ("flash_decode_quant",),
+                 "rates"),
+          "1c": ("phase1c_qmatmul", ("qmatmul",), "rates"),
+          "1d": ("phase1d_probes", ("probe_dep_chain", "probe_chase",
+                                    "probe_mma"), "model"),
+          "1f": ("phase1f_flash_attention", ("flash_attention",), "model")}
 KEEP = ("name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "max_abs_err")
+SWEEP_BATCHES = (1, 2, 4, 8, 16, 32)
+SWEEP_ILPS = (1, 2, 4, 6, 8)
+
+
+def _sweep(chip_smoke, model) -> list:
+    """The Fig 4/5 sweep: ``mma_products`` bf16, 128^3, each (batch,
+    ilp), timed alone (no sum) by ``chip_smoke.time_ms``; each entry
+    carries its TFLOP/s."""
+    import torch
+    from repro_torch.kernels import probe_mma as pm
+    hbm, peak = model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"]
+    out = []
+    for b in SWEEP_BATCHES:
+        for i in SWEEP_ILPS:
+            g = torch.Generator(device="cuda").manual_seed(b * 10 + i)
+            x = torch.randn((b, i, 128, 128), generator=g,
+                            device="cuda").bfloat16()
+            y = torch.randn((b, i, 128, 128), generator=g,
+                            device="cuda").bfloat16()
+            ms = chip_smoke.time_ms(pm.mma_products, [(x, y)])
+            flops = 2 * 128 ** 3 * b * i
+            bound_ms, bound_by = chip_smoke.bound(
+                2 * x.numel() * 2 + x.numel() * 4, flops, hbm, peak)
+            out.append({"name": f"mma_sweep[b{b},ilp{i}]", "ms": ms,
+                        "plain_ms": None, "library_ms": None,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "max_abs_err": None,
+                        "tflops": flops / ms / 1e9})
+    return out
 
 
 def _child(tree: pathlib.Path, phases) -> None:
@@ -45,11 +83,15 @@ def _child(tree: pathlib.Path, phases) -> None:
     model = detect_backend_model()
     entries = []
     for p in phases:
-        out = getattr(chip_smoke, PHASES[p][0])(
-            model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"])
+        fn, _, takes = PHASES[p]
+        args = ((model,) if takes == "model" else
+                (model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"]))
+        out = getattr(chip_smoke, fn)(*args)
         entries += out if isinstance(out, list) else [out]
-    print(MARK + json.dumps([{k: e[k] for k in KEEP} for e in entries]),
-          flush=True)
+        if p == "1d":
+            entries += _sweep(chip_smoke, model)
+    print(MARK + json.dumps([{k: e.get(k) for k in KEEP + ("tflops",)}
+                             for e in entries]), flush=True)
 
 
 def main(argv=None) -> int:
@@ -84,15 +126,22 @@ def main(argv=None) -> int:
     print("\ncase: ms per run in order " + ", ".join(ORDER)
           + "; plain, PyTorch call and bound from the new tree's first run")
     first_new = next(r for label, r in runs if label == "new")
+
+    def num(v, fmt):
+        return "-" if v is None else format(v, fmt)
+
     for name, e in first_new.items():
         times = ", ".join(
             f"{label} {r[name]['ms']:.4f}" if name in r else f"{label} -"
             for label, r in runs)
-        lib = ("-" if e["library_ms"] is None
-               else f"{e['library_ms']:.4f}")
-        print(f"{name}: {times}; plain {e['plain_ms']:.4f}, PyTorch call "
-              f"{lib}, bound {e['bound_ms']:.4f} ({e['bound_by']}), max "
-              f"|err| {e['max_abs_err']:.3e}")
+        rates = ", ".join(
+            f"{label} {num(r[name].get('tflops'), '.2f')}" if name in r
+            else f"{label} -" for label, r in runs)
+        print(f"{name}: {times}; plain {num(e['plain_ms'], '.4f')}, "
+              f"PyTorch call {num(e['library_ms'], '.4f')}, bound "
+              f"{e['bound_ms']:.4f} ({e['bound_by']}), max |err| "
+              f"{num(e['max_abs_err'], '.3e')}"
+              + (f"; TFLOP/s {rates}" if e.get("tflops") else ""))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()

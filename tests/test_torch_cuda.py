@@ -19,15 +19,17 @@ narrower than 16 bytes), and two calls must give the same bits.  ``qmatmul`` /
 (only the summation order differs); bf16 output within 2 bf16 ulps of
 the plain version plus that fp32 tolerance; packed bit-identical to the
 container kernel, on the narrow (m <= 64) and the wide path; two calls
-bit-identical.  The ``wgmma.cuh`` unit tile: rtol 1e-5, atol 1e-5
-against an fp32 product of the same bf16 operands (exact products,
-only the summation order differs).  Probe kernels: ``chase`` exact; ``dep_chain``
+bit-identical.  The ``wgmma.cuh`` unit tiles (both operands in shared
+memory; A in registers with B MN-major): rtol 1e-5, atol 1e-5 against
+an fp32 product of the same bf16 operands (exact products, only the
+summation order differs).  Probe kernels: ``chase`` exact; ``dep_chain``
 (``probe_dep_chain.assert_chain_close``): the compute workloads' int32,
 fp32, mixed1 and mixed2 (up to chain 40) values exact, fp64 and the
 public chain (a = 1.0001, b = 0.5) within (n + 1) ulps (fma against the
 plain version's multiply and add);
-``mma_probe`` bf16 out within 1 bf16 ulp + 1e-5 sqrt(k), TF32 atol
-2^-8 sqrt(k), fp32 out from bf16 inputs atol 1e-5 sqrt(k).  ``ssd_scan``
+``mma_probe`` bf16 / fp16 out within 1 ulp of the type + 1e-5 sqrt(k),
+TF32 atol 2^-8 sqrt(k), fp32 out from bf16 / fp16 inputs atol 1e-5
+sqrt(k).  ``ssd_scan``
 (fp32 math on both sides, unit-scale inputs): y and the final state
 atol 2e-4, the tolerance of the reference's own kernel test against its
 sequential oracle (``tests/test_kernels.py``); a bf16 y may also
@@ -58,6 +60,7 @@ from repro_torch.kernels.flash_decode_quant import plan as fdq_plan
 from repro_torch.kernels.qmatmul import (
     pack_for_qmatmul, plan, qmatmul, qmatmul_packed, qmatmul_packed_plain,
     qmatmul_plain, quantize_for_qmatmul, wgmma_unit_tile)
+from repro_torch.kernels.flash_attention import wgmma_rs_unit_tile
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import attention as attn
 from repro_torch.models.model import build_model
@@ -445,6 +448,23 @@ def test_wgmma_unit_tile(cuda, k):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("k", [16, 32, 48, 64])
+@pytest.mark.parametrize("n", [64, 128])
+def test_wgmma_rs_unit_tile(cuda, n, k):
+    """One warpgroup's m64nNk16 products with A from registers (the
+    mma.sync fragment layout) and B MN-major, swizzled, two column
+    blocks apart at n 128 (``MmaRS``, ``desc_sw128_mn``): the form of
+    flash_attention's P V."""
+    rng = np.random.default_rng(n + k)
+    a = torch.from_numpy(rng.standard_normal((64, k), np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, n), np.float32))
+    a, b = a.to("cuda", BF16), b.to("cuda", BF16)
+    got = wgmma_rs_unit_tile(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, a.float() @ b.float(), rtol=1e-5,
+                               atol=1e-5)
+
+
 def _qmm_check_both(x, w, fmt, out_dtype, k):
     """qmatmul (and qmatmul_packed, bit for bit) against the plain
     version; returns the container kernel's output."""
@@ -598,8 +618,9 @@ def test_chain_timer_overhead_and_latency(cuda):
 
 def _mma_close(got, want, k, kind):
     g, w = got.float(), want.float()
-    if kind == "bf16":
-        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+    if kind in ("bf16", "fp16"):
+        bits = 8 if kind == "bf16" else 11
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - bits)
         tol = ulp + 1e-5 * k ** 0.5
     else:
         tol = (2.0 ** -8 if kind == "tf32" else 1e-5) * k ** 0.5
@@ -622,6 +643,34 @@ def test_mma_probe(cuda, dtype, ilp, mkn):
     assert got.dtype == dtype and got.shape == (ilp, m, n)
     _mma_close(got, pm.mma_probe_plain(x, y, dtype), k,
                "bf16" if dtype == BF16 else "tf32")
+
+
+@pytest.mark.parametrize("ilp", range(1, 9))
+@pytest.mark.parametrize("dtype", [BF16, torch.float16, F32],
+                         ids=["bf16", "fp16", "tf32"])
+def test_mma_probe_every_ilp_off_the_block_tile(cuda, dtype, ilp):
+    """Every ilp of the kernel, m, n and k off its 32 x 32 block tile and
+    its 64-byte k slices (48 x 48 @ 48 x 72, and 272 of k), out in the
+    input's dtype with y broadcast over the products (``mma_probe``) and
+    in fp32 with a y per product (``mma_products``)."""
+    kind = {BF16: "bf16", torch.float16: "fp16", F32: "tf32"}[dtype]
+    g = torch.Generator(device="cuda").manual_seed(ilp)
+    for m, k, n in ((48, 48, 72), (16, 272, 8)):
+        x = torch.randn((ilp, m, k), generator=g, device="cuda").to(dtype)
+        y = torch.randn((k, n), generator=g, device="cuda").to(dtype)
+        before = pm.mma_probe.launches
+        got = pm.mma_probe(x, y, bm=16, bn=8, bk=16, ilp=ilp)
+        torch.cuda.synchronize()
+        assert pm.mma_probe.launches == before + 1
+        assert got.dtype == dtype and got.shape == (ilp, m, n)
+        _mma_close(got, pm.mma_probe_plain(x, y, dtype), k, kind)
+        a = torch.randn((3, ilp, m, k), generator=g, device="cuda").to(dtype)
+        b = torch.randn((3, ilp, k, n), generator=g, device="cuda").to(dtype)
+        got = pm.mma_products(a, b)
+        torch.cuda.synchronize()
+        assert got.dtype == F32 and got.shape == (3, ilp, m, n)
+        _mma_close(got, pm.mma_probe_plain(a, b, F32), k,
+                   "tf32" if dtype == F32 else "fp32")
 
 
 @pytest.mark.parametrize("batch,ilp", [(1, 1), (4, 2), (16, 4)])
@@ -827,6 +876,41 @@ def test_flash_attention_strided_head_major(cuda):
     kh, vh = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (k, v))
     assert kh.stride(1) == 64 and not kh.is_contiguous()
     _check_fa(q, kh, vh)
+
+
+FA_WGMMA_CASES = {
+    # sq and skv off the 128-row q tile and the K/V tile
+    "ragged": (dict(b=2, sq=200, skv=333, hq=4, hkv=2), {}),
+    "non_causal": (dict(b=2, sq=131, skv=259, hq=4, hkv=4),
+                   dict(causal=False)),
+    "q_offset": (dict(b=2, sq=150, skv=610, hq=4, hkv=2),
+                 dict(q_offset=460)),
+    "window_softcap": (dict(b=2, sq=390, skv=390, hq=4, hkv=2),
+                       dict(window=100, softcap=30.0)),
+    "gqa_32_8": (dict(b=1, sq=260, skv=260, hq=32, hkv=8), {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FA_WGMMA_CASES))
+@pytest.mark.parametrize("d", [64, 72, 128, 256])
+def test_flash_attention_wgmma_head_dims(cuda, d, case):
+    """The bf16 kernel at each padded head_dim (72 pads to 128 by the TMA
+    maps' zero fill), ragged sq / skv, q_offset, window + softcap, GQA."""
+    spec, flags = FA_WGMMA_CASES[case]
+    _check_fa(*_fa_inputs(d + len(case), d=d, dtype=BF16, **spec), **flags)
+
+
+@pytest.mark.parametrize("d", [64, 72, 128, 256])
+def test_flash_attention_fused_qkv_views(cuda, d):
+    """q, k, v as the model's head split of one fused projection, (b, s,
+    3 * h * d) viewed (b, s, 3, h, d): strided views, no copy."""
+    rng = np.random.default_rng(d)
+    qkv = torch.from_numpy(rng.standard_normal((2, 300, 3 * 4 * d),
+                                               np.float32)).to("cuda", BF16)
+    q, k, v = qkv.view(2, 300, 3, 4, d).unbind(2)
+    assert q.stride() == (300 * 12 * d, 12 * d, d, 1)
+    _check_fa(q, k, v)
+    _check_fa(q, k, v, window=64, q_offset=0)
 
 
 def test_flash_attention_gptneox_prefill_card_matches_cpu(cuda):

@@ -1,0 +1,209 @@
+"""The launch plans of ``mma_probe`` and ``flash_attention``, on the CPU:
+the block tile, grid and shared memory of ``probe_mma.plan``; the tile,
+stages, shared memory, head groups and block order of
+``flash_attention.plan``; and every input check those plans make.  The
+CUDA paths call ``plan`` before each launch; it reads shapes, dtypes,
+strides and addresses only, so CPU tensors reach it here.  The kernels
+themselves are held to their plain versions on the card
+(``tests/test_torch_cuda.py``).
+"""
+
+import itertools
+
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import probe_mma as pm
+
+SMS = 132                                # an H100 SXM
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+
+
+# ---- probe_mma.plan ---------------------------------------------------- #
+
+def _ab(batch=16, ilp=4, m=128, k=128, n=128, dtype=BF16):
+    return (torch.zeros((batch, ilp, m, k), dtype=dtype),
+            torch.zeros((batch, ilp, k, n), dtype=dtype))
+
+
+def test_probe_plan_fills_the_card_at_the_timed_shape():
+    """batch 16 x ilp 4 products of 128^3: a block per (entry, 32 x 32
+    tile) gives 256 blocks, more than the 132 SMs (a 128 x 128 tile would
+    give 16)."""
+    pl = pm.plan(*_ab(), torch.float32)
+    assert (pl.bm, pl.bn) == pm.BLOCK_TILE == (32, 32)
+    assert pl.grid == (16, 16)
+    assert pl.grid[0] * pl.grid[1] >= SMS
+
+
+@pytest.mark.parametrize("m,n,k", [(128, 128, 128), (48, 72, 48),
+                                   (16, 8, 16), (256, 40, 96)])
+@pytest.mark.parametrize("dtype", [BF16, F16, F32], ids=["bf16", "fp16",
+                                                         "tf32"])
+def test_probe_plan_tiles_ragged_shapes(dtype, m, n, k):
+    """m, n off the block tile take one more tile each; a stage holds 64
+    bytes of k (32 values, 16 for fp32)."""
+    pl = pm.plan(*_ab(3, 2, m, k, n, dtype), dtype)
+    assert pl.grid == (-(-m // 32) * -(-n // 32), 3)
+    assert pl.bk == (16 if dtype == F32 else 32)
+    assert pl.bk * torch.empty((), dtype=dtype).element_size() == 64
+
+
+@pytest.mark.parametrize("ilp", range(1, 9))
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "tf32"])
+def test_probe_plan_shared_memory_per_ilp(dtype, ilp):
+    pl = pm.plan(*_ab(1, ilp, dtype=dtype), F32)
+    assert pl.smem_bytes == pl.stages * ilp * pm.PRODUCT_STAGE_BYTES
+    assert pl.stages >= 2 and pl.smem_bytes <= fa.SMEM_LIMIT
+    assert pl.threads == 128
+
+
+def test_probe_plan_takes_a_broadcast_y():
+    """``mma_probe`` passes y.expand(1, ilp, k, n): batch and ilp strides 0."""
+    x = torch.zeros((1, 4, 128, 64), dtype=BF16)
+    y = torch.zeros((64, 32), dtype=BF16).expand(1, 4, 64, 32)
+    assert y.stride()[:2] == (0, 0)
+    assert pm.plan(x, y, BF16).grid == (4, 1)
+
+
+def _bad_probe_calls():
+    a, b = _ab(2, 2, 32, 32, 32)
+    yield "ndim", (a[0], b[0], F32), ValueError
+    yield "k mismatch", (a, _ab(2, 2, 32, 48, 32)[1], F32), ValueError
+    yield "dtypes differ", (a, b.float(), F32), ValueError
+    yield "int8 in", (a.to(torch.int8), b.to(torch.int8), F32), TypeError
+    yield "fp16 out of bf16", (a, b, F16), TypeError
+    yield "m % 16", (*_ab(1, 1, 24, 32, 32), F32), ValueError
+    yield "n % 8", (*_ab(1, 1, 32, 32, 20), F32), ValueError
+    yield "k % 16", (*_ab(1, 1, 32, 24, 32), F32), ValueError
+    yield "tf32 k % 8", (*_ab(1, 1, 32, 12, 32, F32), F32), ValueError
+    yield "ilp 9", (*_ab(1, 9, 32, 32, 32), F32), ValueError
+    big = torch.zeros((1, 1, 16, 16), dtype=BF16).expand(65536, 1, 16, 16)
+    yield "batch", (big, big, F32), ValueError
+    yield "k not unit-stride", (a.transpose(2, 3), b, F32), ValueError
+    wide = torch.zeros((2, 2, 32, 40), dtype=BF16)[..., 4:36]
+    yield "a off 16 bytes", (wide, b, F32), ValueError
+    ragged = torch.zeros((2, 2, 32, 36), dtype=BF16)[..., :32]
+    yield "b row stride off 16 bytes", (a, ragged, F32), ValueError
+
+
+@pytest.mark.parametrize("case,args,exc", list(_bad_probe_calls()),
+                         ids=[c for c, _, _ in _bad_probe_calls()])
+def test_probe_plan_refuses(case, args, exc):
+    with pytest.raises(exc):
+        pm.plan(*args)
+
+
+def test_probe_plan_accepts_what_mma_products_makes():
+    """``_mm_ilp`` pads to the fragment and hands contiguous tensors."""
+    for dtype, kstep in ((BF16, 16), (F16, 16), (F32, 8)):
+        pm.plan(*_ab(2, 3, 16, kstep, 8, dtype), F32)
+
+
+# ---- flash_attention.plan ---------------------------------------------- #
+
+def _qkv(b=2, sq=300, skv=300, hq=4, hkv=2, d=128, dtype=BF16):
+    return (torch.zeros((b, sq, hq, d), dtype=dtype),
+            torch.zeros((b, skv, hkv, d), dtype=dtype),
+            torch.zeros((b, skv, hkv, d), dtype=dtype))
+
+
+@pytest.mark.parametrize("d", [16, 64, 72, 96, 128, 200, 256])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_attention_tiles_fit_shared_memory(dtype, d):
+    pl = fa.plan(*_qkv(d=d, dtype=dtype), None, 0)
+    assert pl.d_pad == (64 if d <= 64 else 128 if d <= 128 else 256)
+    assert pl.smem_bytes <= fa.SMEM_LIMIT
+    if dtype == BF16:
+        assert (pl.rows, pl.threads) == (128, 384)
+        assert pl.bk == (64 if pl.d_pad == 256 else 128)
+        assert pl.stages >= 2
+        # q tile + K and V rings + 9 mbarriers + 1024 bytes of alignment
+        assert pl.smem_bytes == (128 + 2 * pl.stages * pl.bk) * pl.d_pad * 2 \
+            + 9 * 8 + 1024
+    else:
+        assert (pl.rows, pl.threads, pl.bk) == (64, 256, 64)
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv,skv,dtype", [
+    (8, 2048, 16, 16, 2048, BF16),       # gptneox-1b prefill, (a)
+    (2, 300, 32, 8, 1000, BF16),         # GQA 32/8
+    (3, 1, 4, 1, 5000, BF16),
+    (1, 129, 8, 4, 129, BF16),
+    (2, 300, 4, 2, 300, F32),
+])
+def test_attention_blocks_heaviest_first_within_head_groups(b, sq, hq, hkv,
+                                                            skv, dtype):
+    """Every (pair, q tile) once; a group is a run of whole GQA groups of
+    pairs, all its q tiles before the next group's, the last q tile (the
+    causal tail) first; bf16 groups hold at most GROUP_KV_BYTES of K and
+    V unless one kv head alone is more."""
+    pl = fa.plan(*_qkv(b, sq, skv, hq, hkv, 64, dtype), None, 0)
+    assert pl.pairs == b * hq and pl.q_tiles == -(-sq // pl.rows)
+    order = [pl.block(i) for i in range(pl.blocks)]
+    assert sorted(order) == sorted(itertools.product(range(b * hq),
+                                                     range(pl.q_tiles)))
+    ratio = hq // hkv
+    assert pl.head_group % ratio == 0 or pl.head_group == b * hq
+    per_kv_head = 2 * skv * 64 * 2
+    if dtype == BF16 and per_kv_head <= fa.GROUP_KV_BYTES:
+        assert pl.head_group // ratio * per_kv_head <= fa.GROUP_KV_BYTES
+    if dtype == F32:
+        assert pl.head_group == b * hq      # the fp32 grid: one group
+    span = pl.head_group * pl.q_tiles
+    for g0 in range(0, pl.blocks, span):
+        chunk = order[g0:g0 + span]
+        pairs = {p for p, _ in chunk}
+        assert pairs == set(range(min(pairs), max(pairs) + 1))
+        assert min(pairs) % pl.head_group == 0
+        tiles = [t for _, t in chunk]
+        assert tiles == sorted(tiles, reverse=True)
+        assert tiles[0] == pl.q_tiles - 1
+
+
+def test_attention_head_group_at_the_prefill_shape():
+    """gptneox-1b, b 8 x 16 heads, s 2048: 1 MiB of K and V a head, 16
+    heads a group (256 blocks of 128 rows, about two waves of 132)."""
+    pl = fa.plan(*_qkv(8, 2048, 2048, 16, 16, 128), None, 0)
+    assert (pl.head_group, pl.q_tiles, pl.blocks) == (16, 16, 2048)
+
+
+def test_attention_plan_refuses_what_tma_cannot_read():
+    """bf16 K/V reach the kernel through TMA maps: a broadcast (stride 0)
+    axis of extent > 1 is refused; fp32 (plain loads) takes it."""
+    q, k, v = _qkv(hq=4, hkv=1)
+    kb = torch.zeros((2, 300, 1, 128), dtype=BF16).expand(2, 300, 4, 128)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.plan(q, kb, kb, None, 0)
+    qf, kf, _ = _qkv(hq=4, hkv=1, dtype=F32)
+    kbf = kf.expand(2, 300, 4, 128)
+    assert fa.plan(qf, kbf, kbf, None, 0).head_group == 8
+    # a stride-0 axis of extent 1 is never followed: taken
+    k1 = torch.zeros((1, 300, 1, 128), dtype=BF16).expand(1, 300, 1, 128)
+    q1 = torch.zeros((1, 300, 4, 128), dtype=BF16)
+    assert fa.plan(q1, k1, k1, None, 0).pairs == 4
+
+
+def test_attention_plan_refuses_too_many_q_tiles():
+    q = torch.zeros((1, 1, 1, 64)).expand(1, 64 * 65535 + 1, 1, 64)
+    k = torch.zeros((1, 8, 1, 64))
+    with pytest.raises(ValueError, match="65535"):
+        fa.plan(q, k, k, None, 0)
+
+
+@pytest.mark.parametrize("case", ["shapes", "dtype", "d", "stride",
+                                  "window", "offset"])
+def test_attention_plan_keeps_the_old_checks(case):
+    q, k, v = _qkv()
+    args = {
+        "shapes": (q, k[:, :, :1], v, None, 0),
+        "dtype": (q, k.float(), v, None, 0),
+        "d": (*_qkv(d=260), None, 0),
+        "stride": (q.transpose(1, 3).contiguous().transpose(1, 3), k, v,
+                   None, 0),
+        "window": (q, k, v, 0, 0),
+        "offset": (q, k, v, None, -1),
+    }[case]
+    with pytest.raises((ValueError, TypeError)):
+        fa.plan(*args)
