@@ -70,11 +70,17 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    (a) the serving call (bt 1, s 256, 80 heads, p 64, n 128, fp32 x,
    bf16 b / c, an initial state); (b) bt 8, s 2048 (the carry crosses 8
    chunks inside the kernel); (c) s 100 with chunk 32 (padding); (d)
-   bf16 x and b / c; (e) fp32 b / c and no initial state.  Tolerance atol
-   2e-4 on y and the state (the reference's own kernel test against its
-   oracle), a bf16 y also one bf16 ulp.  It times (a) and (b), kernel
-   and plain version, beside the least time the card could take; no
-   PyTorch call computes an SSD scan, so there is no yardstick;
+   bf16 x and b / c; (e) fp32 b / c and no initial state; then the edges
+   of ``ssd_scan.plan``: (f) p 48, n 64, chunk 32; (g) chunk 1024 over 4
+   heads; (h) bt 8 x 80 heads (640 pairs) at chunk 1024; (i) bt 2 x 1
+   head; (j) p 48 over 80 heads (a slice of 32 and one of 16); (k) p 18,
+   n 20 (rows off 16 bytes: element copies).  Tolerance atol 2e-4 on y
+   and the state (the reference's own kernel test against its oracle), a
+   bf16 y also one bf16 ulp.  It times (a) and (b), kernel and plain
+   version, beside the least time the card could take and the times of
+   the same flops at the fp32 CUDA-core rate and, three products each, at
+   the TF32 tensor-core rate (the kernel's split products); no PyTorch
+   call computes an SSD scan, so there is no yardstick;
 1f. ``wgmma.cuh``'s A-from-registers form with an MN-major B (the
    P V product of the bf16 kernel) on a unit tile, (64, k) @ (k, n) for
    k = 16 .. 64 and n = 64, 128, against an fp32 product (atol 1e-5);
@@ -117,7 +123,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    request must end ``ok`` with 64 tokens, ``ssd_scan`` must have
    launched once per prefill chunk per layer (8 x 2 x 64 = 1024) and its
    plain version never; the slot-state bytes and the profiled decode
-   block are printed as for dense;
+   block are printed as for dense, then one more admission of the 8
+   prompts (and a decode step), profiled: its device time and
+   ``ssd_scan``'s share of it;
 2e. the whole-sequence path at full width, bf16, seeded weights:
    gptneox-1b ``Model.forward`` on 8 x 2048 tokens, ``Model.prefill`` of
    the same prompts (max_seq 2112), then 64 greedy ``Model.decode_step``
@@ -963,14 +971,16 @@ def ssd_bound(x, dt_a, b, c, state, chunk, hbm, peak):
 
 
 def phase1e_ssd_scan(model):
-    """``ssd_scan`` against ``ssd_scan_plain`` on the card, fp32 math on
-    both sides; tolerance atol 2e-4 on y and the state, the reference
-    kernel test's own against its sequential oracle (a bf16 y may also
-    differ by one bf16 ulp, rtol 2^-7: both sides round their fp32 y to
-    bf16).  Then the times at (a) and (b)."""
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    """``ssd_scan`` against ``ssd_scan_plain`` on the card: the kernel in
+    split TF32 on the tensor cores, the plain version in fp32; tolerance
+    atol 2e-4 on y and the state, the reference kernel test's own against
+    its sequential oracle (a bf16 y may also differ by one bf16 ulp, rtol
+    2^-7: both sides round their fp32 y to bf16).  Cases (f)-(k) are the
+    edges of ``ssd_scan.plan``.  Then the times at (a) and (b)."""
+    from repro_torch.kernels.ssd_scan import plan, ssd_scan, ssd_scan_plain
     hbm, peak_bf16 = model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"]
     peak_f32 = model.vector_flops["float32"]
+    peak_tf32 = model.peak_flops["float32"]
     bf16 = torch.bfloat16
     serving = dict(bt=1, s=256, h=80, p=64, n=128, bc_dtype=bf16)
     cases = {
@@ -983,6 +993,15 @@ def phase1e_ssd_scan(model):
         "d_bf16_x_and_bc": (dict(serving, seed=44, x_dtype=bf16), 256),
         "e_fp32_no_state": (dict(serving, seed=45, bc_dtype=torch.float32,
                                  with_state=False), 256),
+        # the plan's edges
+        "f_p48_n64_chunk32": (dict(seed=46, bt=2, s=96, h=4, p=48, n=64),
+                              32),
+        "g_chunk1024_h4": (dict(serving, seed=47, s=2048, h=4), 1024),
+        "h_bt8_h80_chunk1024": (dict(serving, seed=48, bt=8, s=1024), 1024),
+        "i_bt2_h1": (dict(serving, seed=49, bt=2, h=1), 256),
+        "j_p48_h80": (dict(serving, seed=50, p=48), 256),
+        "k_p18_n20_unaligned": (dict(seed=51, bt=2, s=128, h=3, p=18, n=20,
+                                     bc_dtype=bf16), 64),
     }
     errors = {}
     for case, (spec, chunk) in cases.items():
@@ -999,9 +1018,13 @@ def phase1e_ssd_scan(model):
         rtol = 2.0 ** -7 if x.dtype == bf16 else 0.0
         err = max((y.float() - y_want.float()).abs().max().item(),
                   (st - st_want).abs().max().item())
+        pl = plan(*_pad_seq(args[:4], chunk), chunk, state)
         log(f"[kernel] ssd_scan {case}: max_abs_err {err:.3e} (y and state;"
             f" |y| max {y.float().abs().max().item():.2f}; tol atol 2e-4, "
-            f"rtol {rtol})")
+            f"rtol {rtol}); plan: {pl.splits} slices of {pl.pw}, "
+            f"{pl.blocks} blocks, {pl.blocks_per_sm} an SM, "
+            f"{pl.smem_bytes} B, {'16-byte' if pl.vec else 'element'} "
+            f"copies")
         torch.testing.assert_close(y.float(), y_want.float(), atol=2e-4,
                                    rtol=rtol)
         torch.testing.assert_close(st, st_want, atol=2e-4, rtol=0.0)
@@ -1030,7 +1053,9 @@ def phase1e_ssd_scan(model):
             f"bound {bound_ms:.4f} ms ({bound_by}: {moved} B, {flops} flop "
             f"at bf16 {peak_bf16 / 1e12:g} TFLOP/s); the same flops at the "
             f"fp32 CUDA-core rate {peak_f32 / 1e12:g} TFLOP/s: "
-            f"{flops / peak_f32 * 1e3:.4f} ms; {len(sets)} input sets")
+            f"{flops / peak_f32 * 1e3:.4f} ms; as split TF32 (3 x the "
+            f"flops at {peak_tf32 / 1e12:g} TFLOP/s): "
+            f"{3 * flops / peak_tf32 * 1e3:.4f} ms; {len(sets)} input sets")
         x = base[0]
         entries.append({
             "name": f"ssd_scan[{case},bt{x.shape[0]}_s{x.shape[1]}_h"
@@ -1420,6 +1445,18 @@ def phase2d_mamba2(prompts):
     log(f"[engine mamba2] ssd_scan launches {out['launches']} "
         f"({len(prompts)} x {calls_per_prompt} x {cfg.n_layers}), plain "
         f"SSD calls 0")
+    # where the serving prefill's device time goes: the admission of the
+    # prompts (and one decode step), profiled
+    eng.reset()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=40)
+    busy, kt, n_kern, top, n_ssd = profile_fn(lambda: eng.decode_loop(1),
+                                              "ssd_scan")
+    log(f"[engine mamba2] profiled admission of {len(prompts)} x "
+        f"{len(prompts[0])} tokens and one decode step: device busy "
+        f"{busy:.2f} ms ({n_kern} kernels); ssd_scan {kt:.2f} ms in {n_ssd} "
+        f"launches ({kt / busy:.3f} of device time); top: {top}")
+    out["admission_device_ms"], out["admission_ssd_ms"] = busy, kt
     out["state_bytes"] = state_bytes
     del eng, params
     torch.cuda.empty_cache()

@@ -30,8 +30,8 @@ plain version's multiply and add);
 ``mma_probe`` bf16 / fp16 out within 1 ulp of the type + 1e-5 sqrt(k),
 TF32 atol 2^-8 sqrt(k), fp32 out from bf16 / fp16 inputs atol 1e-5
 sqrt(k).  ``ssd_scan``
-(fp32 math on both sides, unit-scale inputs): y and the final state
-atol 2e-4, the tolerance of the reference's own kernel test against its
+(the kernel in split TF32, the plain version in fp32, unit-scale
+inputs): y and the final state atol 2e-4, the tolerance of the reference's own kernel test against its
 sequential oracle (``tests/test_kernels.py``); a bf16 y may also
 differ by one bf16 ulp (rtol 2^-7: both sides round their fp32 y to
 bf16).  ``flash_attention``, the tolerances of the reference's own
@@ -61,6 +61,7 @@ from repro_torch.kernels.qmatmul import (
     pack_for_qmatmul, plan, qmatmul, qmatmul_packed, qmatmul_packed_plain,
     qmatmul_plain, quantize_for_qmatmul, wgmma_unit_tile)
 from repro_torch.kernels.flash_attention import wgmma_rs_unit_tile
+from repro_torch.kernels.ssd_scan import plan as ssd_plan
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import attention as attn
 from repro_torch.models.model import build_model
@@ -728,11 +729,35 @@ def _check_ssd(x, dt_a, b, c, state, chunk):
     torch.testing.assert_close(st, st_want, atol=2e-4, rtol=0.0)
 
 
-@pytest.mark.parametrize("chunk", [32, 64, 100, 256])
+@pytest.mark.parametrize("chunk", [32, 64, 100, 256, 1024])
 @pytest.mark.parametrize("s,h,p,n", [(128, 2, 32, 16), (192, 4, 64, 32),
-                                     (256, 3, 64, 128), (100, 2, 16, 8)])
+                                     (256, 3, 64, 128), (100, 2, 16, 8),
+                                     (96, 4, 48, 64), (256, 80, 64, 128),
+                                     (130, 1, 64, 128), (64, 80, 48, 64)])
 def test_ssd_scan_shapes(cuda, chunk, s, h, p, n):
+    """Chunks of one sub-chunk and less (32, 64), across sub-chunks (100,
+    256) and 16 of them (1024); ``ssd_scan.plan``'s edges: h 1 to 80, p 48
+    (a slice of 32 and one of 16) and 64, n 64 and 128."""
     _check_ssd(*_ssd_inputs(s + chunk, 2, s, h, p, n), chunk)
+
+
+@pytest.mark.parametrize("bt,s,h,p,n,chunk", [
+    (1, 256, 80, 64, 128, 256),     # the serving call: 160 blocks of 32
+    (8, 512, 80, 64, 128, 256),     # 640 (row, head) pairs
+    (8, 1024, 80, 48, 64, 1024),
+    (1, 64, 2, 64, 128, 32),        # 2 pairs, a slice of 16 each
+    (3, 200, 5, 18, 20, 64),        # rows off 16 bytes: element copies
+])
+def test_ssd_scan_grid_edges(cuda, bt, s, h, p, n, chunk):
+    """bt x h from 2 to 640 pairs, the slice widths ``ssd_scan.plan``
+    takes there, and the element-copy path."""
+    x, dt_a, b, c, state = _ssd_inputs(bt * s + chunk, bt, s, h, p, n,
+                                       bc_dtype=BF16)
+    if (p, n) == (18, 20):
+        assert not ssd_plan(*[torch.nn.functional.pad(
+            t, (0, 0) * (t.ndim - 2) + (0, (-s) % chunk))
+            for t in (x, dt_a, b, c)], chunk, state).vec
+    _check_ssd(x, dt_a, b, c, state, chunk)
 
 
 @pytest.mark.parametrize("x_dtype,bc_dtype", [(F32, BF16), (BF16, BF16),

@@ -1,7 +1,9 @@
-"""The launch plans of ``mma_probe`` and ``flash_attention``, on the CPU:
-the block tile, grid and shared memory of ``probe_mma.plan``; the tile,
-stages, shared memory, head groups and block order of
-``flash_attention.plan``; and every input check those plans make.  The
+"""The launch plans of ``mma_probe``, ``flash_attention`` and
+``ssd_scan``, on the CPU: the block tile, grid and shared memory of
+``probe_mma.plan``; the tile, stages, shared memory, head groups and
+block order of ``flash_attention.plan``; the slices of p, padding of n,
+copy width, shared memory and blocks an SM of ``ssd_scan.plan``; and
+every input check those plans make.  The
 CUDA paths call ``plan`` before each launch; it reads shapes, dtypes,
 strides and addresses only, so CPU tensors reach it here.  The kernels
 themselves are held to their plain versions on the card
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import probe_mma as pm
+from repro_torch.kernels import ssd_scan as ss
 
 SMS = 132                                # an H100 SXM
 BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
@@ -207,3 +210,148 @@ def test_attention_plan_keeps_the_old_checks(case):
     }[case]
     with pytest.raises((ValueError, TypeError)):
         fa.plan(*args)
+
+
+# ---- ssd_scan.plan ----------------------------------------------------- #
+
+def _ssd(bt=1, s=256, h=80, p=64, n=128, x_dtype=F32, bc_dtype=BF16,
+         state=True):
+    return (torch.zeros((bt, s, h, p), dtype=x_dtype),
+            torch.zeros((bt, s, h), dtype=F32),
+            torch.zeros((bt, s, n), dtype=bc_dtype),
+            torch.zeros((bt, s, n), dtype=bc_dtype),
+            torch.zeros((bt, h, p, n)) if state else None)
+
+
+def _ssd_plan(bt=1, s=256, h=80, p=64, n=128, chunk=256, **kw):
+    x, dt_a, b, c, state = _ssd(bt, s, h, p, n, **kw)
+    return ss.plan(x, dt_a, b, c, chunk, state)
+
+
+def test_ssd_plan_fills_the_card_at_the_serving_shape():
+    """(a), the serving call: 80 (row, head) pairs, p 64 in two slices of
+    32: 160 blocks of 110,128 bytes (two stages of TMA boxes, B and C 64 x
+    128 bf16 and x 64 x 32 fp32, with 196 scalars each; the fp32 state
+    slice 32 x 136; the warp pairs' partial sums, 8 x 2 x 128 fp32; an
+    8-byte mbarrier a stage; 1024 bytes of alignment), two resident an
+    SM."""
+    pl = _ssd_plan()
+    assert (pl.pw, pl.splits, pl.vec) == (32, 2, True)
+    assert pl.smem_bytes == 2 * (2 * 64 * 128 * 2 + 64 * 32 * 4 + 196 * 4
+                                 + 8) + 32 * 136 * 4 + 8 * 2 * 128 * 4 \
+        + 1024 == 110128
+    assert pl.blocks == 160 >= SMS
+    assert pl.blocks_per_sm == 2
+    assert 2 * (pl.smem_bytes + ss.BLOCK_RESERVED) <= ss.SM_SMEM
+    assert pl.smem_bytes <= fa.SMEM_LIMIT == ss.SMEM_LIMIT
+
+
+def test_ssd_plan_at_the_whole_sequence_shape():
+    """(b), bt 8 x s 2048 x 80 heads: 1280 blocks of the same slices."""
+    pl = _ssd_plan(bt=8, s=2048)
+    assert (pl.pw, pl.splits, pl.blocks, pl.blocks_per_sm) == (32, 2, 1280,
+                                                               2)
+
+
+@pytest.mark.parametrize("chunk", [32, 256, 1024])
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("p", [48, 64])
+@pytest.mark.parametrize("bt,h", [(1, 2), (2, 4), (8, 4), (1, 80), (2, 80),
+                                  (8, 80)])
+@pytest.mark.parametrize("dtypes", [(F32, BF16), (BF16, BF16), (F32, F32)],
+                         ids=["x32_bc16", "x16_bc16", "x32_bc32"])
+def test_ssd_plan_split_at_the_edges(dtypes, bt, h, p, n, chunk):
+    """The slices cover p exactly once; the shared memory is the layout's
+    (n padded to 128) and fits; the blocks an SM are what the
+    memory allows; the widest slice that fills the card with two blocks an
+    SM is taken, else the grid with the most blocks resident at once."""
+    x_dtype, bc_dtype = dtypes
+    pl = _ssd_plan(bt, chunk, h, p, n, chunk, x_dtype=x_dtype,
+                   bc_dtype=bc_dtype)
+    assert pl.pw in ss.SLICES
+    assert pl.splits == -(-p // pl.pw) and (pl.splits - 1) * pl.pw < p
+    x_elt, bc_elt = x_dtype.itemsize, bc_dtype.itemsize
+    assert pl.smem_bytes == ss.smem_bytes(pl.pw, bc_elt, x_elt)
+    assert pl.smem_bytes <= ss.SMEM_LIMIT
+    assert pl.blocks == bt * h * pl.splits
+    assert 1 <= pl.blocks_per_sm <= ss.MAX_BLOCKS_PER_SM
+    assert pl.blocks_per_sm * (pl.smem_bytes + ss.BLOCK_RESERVED) \
+        <= ss.SM_SMEM
+    if pl.blocks_per_sm < ss.MAX_BLOCKS_PER_SM:
+        assert (pl.blocks_per_sm + 1) * (pl.smem_bytes
+                                         + ss.BLOCK_RESERVED) > ss.SM_SMEM
+    options = {}
+    for pw in ss.SLICES:
+        if pw > ss.SLICES[-1] and pw // 2 >= p:
+            continue
+        splits, smem, per_sm = ss.slice_shape(pw, p, bc_elt, x_elt)
+        options[pw] = (bt * h * splits, per_sm)
+    fills = [pw for pw, (blocks, per_sm) in options.items()
+             if blocks >= SMS and per_sm >= 2]
+    if fills:
+        assert pl.pw == max(fills)
+    else:
+        resident = {pw: min(blocks, per_sm * SMS)
+                    for pw, (blocks, per_sm) in options.items()}
+        assert resident[pl.pw] == max(resident.values())
+        assert pl.pw == max(pw for pw, r in resident.items()
+                            if r == max(resident.values()))
+
+
+@pytest.mark.parametrize("p,pw", [(8, 16), (16, 16), (17, 32), (32, 32),
+                                  (33, 64), (64, 64)])
+def test_ssd_plan_takes_no_slice_wider_than_p_needs(p, pw):
+    """A narrow p never takes a slice whose half already holds it, even
+    where a wider slice would fill more of the card."""
+    pl = _ssd_plan(bt=8, s=64, h=80, p=p, n=128, chunk=64, bc_dtype=F32)
+    assert pl.pw <= pw
+
+
+@pytest.mark.parametrize("n", [8, 16, 20, 100, 128])
+def test_ssd_plan_shared_memory_does_not_depend_on_n(n):
+    """Shared memory holds B, C and the state at n = 128 whatever n is
+    (the columns past n are zero), so every n takes the same slices."""
+    assert _ssd_plan(n=n).smem_bytes == _ssd_plan().smem_bytes
+    assert _ssd_plan(n=n).pw == _ssd_plan().pw
+
+
+def test_ssd_plan_copies_by_tma_only_where_aligned():
+    """TMA needs every row of x, b and c and their first element on 16
+    bytes; otherwise the plan says element copies."""
+    assert _ssd_plan(p=20).vec                   # 80-byte x rows
+    assert not _ssd_plan(p=18).vec               # 72-byte x rows
+    assert not _ssd_plan(n=20).vec               # 40-byte bf16 b / c rows
+    assert _ssd_plan(n=24, bc_dtype=F32).vec     # 96-byte fp32 rows
+    x, dt_a, b, c, state = _ssd(s=64)
+    off = torch.zeros(x.numel() + 1)[1:].view(x.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    assert not ss.plan(off, dt_a, b, c, 64, state).vec
+    assert ss.plan(x, dt_a, b, c, 64, state).vec
+
+
+def _bad_ssd_calls():
+    x, dt_a, b, c, state = _ssd(s=64, h=2)
+    yield "dt_a shape", (x, dt_a[:, :32], b, c, 64, state), ValueError
+    yield "b shape", (x, dt_a, b[..., :64], c, 64, state), ValueError
+    yield "state shape", (x, dt_a, b, c, 64, state[:, :1]), ValueError
+    yield "p 80", (*_ssd(s=64, h=2, p=80)[:4], 64, None), ValueError
+    yield "n 136", (*_ssd(s=64, h=2, n=136)[:4], 64, None), ValueError
+    yield "chunk 2048", (*_ssd(s=2048, h=2)[:4], 2048, None), ValueError
+    yield "s % chunk", (x, dt_a, b, c, 48, state), ValueError
+    yield "x fp16", (x.half(), dt_a, b, c, 64, state), TypeError
+    yield "dt_a fp64", (x, dt_a.double(), b, c, 64, state), TypeError
+    yield "b, c differ", (x, dt_a, b, c.float(), 64, state), TypeError
+    yield "state bf16", (x, dt_a, b, c, 64, state.bfloat16()), TypeError
+    yield "x strided", (x.transpose(2, 3).contiguous().transpose(2, 3),
+                        dt_a, b, c, 64, state), ValueError
+    yield "c strided", (x, dt_a, b, torch.zeros(1, 64, 256,
+                                               dtype=BF16)[..., ::2],
+                        64, state), ValueError
+    yield "b on meta", (x, dt_a, b.to("meta"), c, 64, state), ValueError
+
+
+@pytest.mark.parametrize("case,args,exc", list(_bad_ssd_calls()),
+                         ids=[c for c, _, _ in _bad_ssd_calls()])
+def test_ssd_plan_refuses(case, args, exc):
+    with pytest.raises(exc):
+        ss.plan(*args)
