@@ -137,6 +137,30 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    (one per layer), its plain version never.  Wall and profiled device
    times, prefill tokens/s, ms per decode step, peak memory and
    flash_attention's device ms per call are printed;
+2f. full-depth gemma2-2b (26 layers, d_model 2304, 8 q-heads over 4 KV
+   heads of 256, d_ff 9216, vocab 256000, tied, bf16, seeded weights)
+   through ``ServeEngine.run``: batch 8, max_seq 4608 (rings of 4096
+   slots on the local layers, 4608 on the global ones), 2 prompts of
+   4200 tokens and 6 of 256 x 64 new tokens, prefill chunks of 256, so
+   the local rings wrap in the chunk writes and in decode.  Served with
+   dense KV (``flash_decode`` exactly 26 launches a decode step), then
+   with fp4 KV on the local layers and fp8 on the global ones
+   (``flash_decode_quant`` 26 a step); the other kernel and both plain
+   versions never; each kernel on both ring kinds of the engine's pool
+   (window 4096 and softcap 50 on the local ring) held to its plain
+   version (case g).  The unembed (the tied table cast to fp32 every
+   call) profiled alone.  Then ``Model.forward`` and ``Model.prefill``
+   of 2 x 4608 tokens: ``flash_attention`` exactly 26 launches each,
+   its plain version never, the prefill's last logits within atol 1e-3
+   of the forward's; and the kernel against its plain version at that
+   shape (window 4096, softcap 50, bf16 atol 2e-2).  Phase 2's metrics
+   are printed for each run;
+2g. qwen2.5-3b, llama3.2-3b and gemma-2b at full width, one after the
+   other: greedy, batch 8, 8 x 256-token prompts x 64 new tokens,
+   max_seq 1024, prefill chunks of 256; ``flash_decode`` exactly
+   ``n_layers`` launches a decode step, case (g).  Then gptneox-1b
+   sampled (temperature 0.8, top_k 8, seed 3) with phase 2's traffic:
+   its kernels and device-busy ms a step beside phase 2's greedy run;
 3. the dense path on the card and on the CPU in fp32 with TF32 off, full
    width, 2 layers, the same seeded weights: 2 requests x 32-token
    prompts x 16 new tokens, decode_block 7.  Greedy streams must be
@@ -157,6 +181,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    of the CPU's, the card's decode logits within 5e-4 of its forward's;
    mamba2-2.7b prompts of 300 and 600 tokens: streams identical, prefill
    logits and the SSM carries and state within atol 1e-3;
+3e. the sampler and the dense-decoder family the same way: at (8,
+   256000), ``random_bits`` and ``uniform`` bit-identical on card and
+   CPU, gumbel within atol 2e-6, ``sample_tokens`` equal; gemma2-2b cut
+   to 2 layers at full width with its window cut to 64 (the rings wrap
+   in a short run), 2 x 300-token prompts x 16 new tokens, greedy and
+   sampled (temperature 0.8, top_k 8, seed 3); gemma-2b (MQA) greedy:
+   streams identical, admission logits within atol 1e-3,
+   ``flash_decode`` once per layer per decode step on the card;
 4. the probe suite ``repro_torch.launch.characterize`` on the card at the
    reference example's sizes, with every probe kernel's launch count and
    every plain version's call count set to 0 just before and read just
@@ -364,11 +396,14 @@ def check_qmm(case: str, got, want, k: int) -> float:
 def profile_fn(fn, kernel_key: str):
     """``fn()`` under ``torch.profiler``: (device busy ms, ``kernel_key``
     device ms, kernel launches, top kernels by device time, ``kernel_key``
-    launches) from the CUDA kernel events."""
+    launches) from the CUDA kernel events.  Only the CUDA activity is
+    recorded: the CPU's op events are not read, and recording them too
+    made the profile of a 16-step gptneox-1b decode block take about four
+    times as long on the H100 machine's host, for the same kernels and
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
@@ -1242,8 +1277,8 @@ def serve(eng, prompts, counter, expected, label: str) -> dict:
     log(f"[{label}] {len(results)} requests ok x 64 tokens; {steps} decode "
         f"steps in {eng.dispatches} blocks; {counter.__name__} launches "
         f"{launches}")
-    log(f"[{label}] prefill {out['prefill_s']:.3f} s ({len(prompts)} x "
-        f"{len(prompts[0])} tokens), "
+    log(f"[{label}] prefill {out['prefill_s']:.3f} s ({len(prompts)} "
+        f"prompts, {sum(map(len, prompts))} tokens), "
         f"decode {out['tok_s']:.1f} tok/s, {out['step_ms']:.2f} ms per "
         f"decode step, mean TTFT {out['ttft_ms']:.1f} ms, peak memory "
         f"{out['peak_gib']:.2f} GiB")
@@ -1262,6 +1297,9 @@ def serve(eng, prompts, counter, expected, label: str) -> dict:
         f"{kt / 16:.3f} ms per step ({kt / busy:.3f} of device time)")
     for key, count, t in top:
         log(f"[{label}]   {t:9.3f} ms  x{count:<5d} {key}")
+    out.update(busy_ms_step=busy / 16, kernels_step=n_kern / 16,
+               idle_share=1 - busy / 16 / out["step_ms"],
+               attn_ms_step=kt / 16)
     return out
 
 
@@ -1638,6 +1676,265 @@ def phase2e_whole_sequence(hbm, peak_bf16):
     return out
 
 
+def _pool_check(label: str, eng) -> dict:
+    """Case (g) for every position in the period: the decode kernel of
+    that position (``flash_decode``, or ``flash_decode_quant`` in its
+    KV format) on layer 0 of the engine's own pool, with the window and
+    softcap the model passes it, against its plain version."""
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_plain)
+    from repro_torch.kernels.flash_decode_quant import (
+        flash_decode_quant, flash_decode_quant_plain)
+    cfg = eng.model.cfg
+    qg = torch.randn((eng.batch, 1, cfg.n_heads, cfg.head_dim), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(7)
+                     ).to(torch.bfloat16)
+    pos = eng.state["pos"]
+    rows = torch.ones(eng.batch, dtype=torch.bool, device="cuda")
+    errs = {}
+    for i, blk in enumerate(cfg.block_pattern()):
+        kv = {n: t[0] for n, t in eng.cache[f"pos{i}"]["kv"].items()}
+        flags = dict(window=blk.window, softcap=cfg.attn_logit_softcap)
+        fmt = cfg.kv_format_for(i)
+        if fmt:
+            got = flash_decode_quant(qg, kv, pos, fmt=fmt, **flags)
+            want = flash_decode_quant_plain(qg, kv, pos, fmt=fmt, **flags)
+        else:
+            args = (qg, kv["k"], kv["v"], kv["slot_pos"], pos)
+            got, want = flash_decode(*args, **flags), flash_decode_plain(
+                *args, **flags)
+        torch.cuda.synchronize()
+        errs[f"pos{i}"] = check_close(
+            f"{label} g_engine_pool pos{i} ({fmt or 'dense'}, window "
+            f"{blk.window}, softcap {cfg.attn_logit_softcap}, S "
+            f"{kv['slot_pos'].shape[1]})", got, want, rows,
+            TOL[torch.bfloat16])
+    return errs
+
+
+def _serve_dense(cfg, params, prompts, label, max_seq, prefill_chunk,
+                 **kw) -> dict:
+    """One full-width engine through :func:`serve`: the decode kernel of
+    its KV (``flash_decode`` dense, ``flash_decode_quant`` quantized)
+    exactly ``n_layers`` launches a decode step, the other kernel and
+    both plain versions never; then case (g) on every position in the
+    period.  Returns serve's metrics."""
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_plain)
+    from repro_torch.kernels.flash_decode_quant import (
+        flash_decode_quant, flash_decode_quant_plain)
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(build_model(cfg), params, batch=8, max_seq=max_seq,
+                      decode_block=16, prefill_chunk=prefill_chunk,
+                      device="cuda", **kw)
+    quant = bool(kw.get("kv_format"))
+    counter, other = ((flash_decode_quant, flash_decode) if quant
+                      else (flash_decode, flash_decode_quant))
+    ks = eng.kv_stats
+    slots = [entry["kv"]["slot_pos"].shape[2] for entry in eng.cache.values()]
+    log(f"[{label}] KV pool {ks['kv_bytes']} B ({ks['kv_bytes'] / 2**30:.3f} "
+        f"GiB), per position in the period {json.dumps(ks['per_layer'])}, "
+        f"ring slots {slots}")
+    other.launches = 0
+    flash_decode_plain.calls = flash_decode_quant_plain.calls = 0
+    out = serve(eng, prompts, counter, lambda steps: cfg.n_layers * steps,
+                label)
+    stray = (other.launches, flash_decode_plain.calls,
+             flash_decode_quant_plain.calls)
+    if stray != (0, 0, 0):
+        raise AssertionError(f"{label}: {other.__name__} launches, plain "
+                             f"calls (dense, quant) {stray}; expected 0")
+    log(f"[{label}] {counter.__name__} {out['launches']} launches = "
+        f"{cfg.n_layers} x {out['steps']} decode steps; "
+        f"{other.__name__} and both plain versions 0")
+    out["pool_err"] = _pool_check(label, eng)
+    out["kv_bytes"] = ks["kv_bytes"]
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase2f_gemma2(hbm, peak_bf16):
+    """gemma2-2b at full width and depth (26 layers, d_model 2304, 8 x 256
+    q-heads over 4 KV heads, d_ff 9216, vocab 256000, tied), bf16, seeded
+    weights.  Serving, batch 8, max_seq 4608 (the local layers' rings
+    hold 4096 slots, the global layers' 4608): 2 prompts of 4200 tokens
+    and 6 of 256, 64 new tokens each, prefill chunks of 256; the long
+    prompts wrap the local rings in the chunk writes and in decode.
+    Served with dense KV (``flash_decode``: 26 launches a step), then
+    with fp4 KV on the local layers and fp8 on the global ones
+    (``flash_decode_quant``: 26 a step).  Then a whole-sequence forward
+    and prefill of 2 x 4608 tokens: ``flash_attention`` 26 launches each,
+    its plain version never, the prefill's last logits within atol 1e-3
+    of the forward's; and the kernel against its plain version at that
+    shape (window 4096, softcap 50).  The unembed (the tied table cast to
+    fp32 every call, as the reference does) is profiled alone."""
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.models.layers import unembed
+    from repro_torch.models.model import build_model
+    cfg = get_config("gemma2-2b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    log(f"[gemma2] {cfg.name}: {cfg.n_layers} layers, params "
+        f"{nbytes(*flatten(params).values()) / 2**30:.3f} GiB "
+        f"({cfg.param_count()} parameters)")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (4200, 4200, 256, 256, 256, 256, 256, 256)]
+    out = {"dense": _serve_dense(cfg, params, prompts, "gemma2 dense KV",
+                                 4608, 256)}
+    fmts = ("float4_e2m1fn", "float8_e4m3fn")
+    out["mixed"] = _serve_dense(cfg, params, prompts,
+                                "gemma2 fp4 local / fp8 global KV", 4608,
+                                256, kv_format=fmts)
+
+    # the unembed alone, (8, 1, 2304) bf16 against the tied table: the
+    # whole call, its fp32 cast of the table, and the product over a
+    # table cast beforehand, by CUDA events (inputs > the L2)
+    x = torch.randn((8, 1, cfg.d_model), device="cuda").to(torch.bfloat16)
+    w = model.unembed_weight(params)
+    cap = cfg.final_logit_softcap
+    w32 = w.float()
+    out["unembed_ms"] = time_ms(lambda: unembed(w, x, cap), [()], 10, 4)
+    cast_ms = time_ms(lambda: w.float(), [()], 10, 4)
+    gemm_ms = time_ms(lambda: unembed(w32, x, cap), [()], 10, 4)
+    log(f"[gemma2] unembed of 8 rows ({tuple(w.shape)} {w.dtype} table): "
+        f"{out['unembed_ms']:.4f} ms device a call; its fp32 cast of the "
+        f"table alone {cast_ms:.4f} ms, the product and softcap over a "
+        f"table cast beforehand {gemm_ms:.4f} ms")
+    del x, w, w32
+
+    # the whole-sequence path: forward and prefill of 2 x 4608
+    b, s = 2, 4608
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
+    model.forward(params, {"tokens": tokens[:, :256]})           # warm-up
+    model.prefill(params, {"tokens": tokens[:, :256]}, 320)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L = cfg.n_layers
+
+    def counts(label):
+        got = (flash_attention.launches, flash_attention_plain.calls)
+        if got != (L, 0):
+            raise AssertionError(f"gemma2 {label}: (flash_attention "
+                                 f"launches, plain calls) {got}, expected "
+                                 f"({L}, 0)")
+
+    flash_attention.launches = flash_attention_plain.calls = 0
+    (logits, _), fwd_s = _timed(lambda: model.forward(params,
+                                                      {"tokens": tokens}))
+    counts("forward")
+    if logits.shape != (b, s, cfg.vocab_size) or not torch.isfinite(
+            logits).all():
+        raise AssertionError("gemma2 forward: logits of the wrong shape or "
+                             "not finite")
+    last = logits[:, -1].clone()
+    del logits
+    flash_attention.launches = flash_attention_plain.calls = 0
+    (pre, cache), pre_s = _timed(lambda: model.prefill(
+        params, {"tokens": tokens}, s))
+    counts("prefill")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    err = (pre - last).abs().max().item()
+    log(f"[gemma2] prefill logits against forward's at position {s - 1}: "
+        f"max_abs_err {err:.3e} (tol atol 1e-3; |logit| max "
+        f"{last.abs().max().item():.2f}, final softcap 30)")
+    torch.testing.assert_close(pre, last, atol=1e-3, rtol=0.0)
+    del pre, cache, last
+    torch.cuda.empty_cache()
+    fwd = profile_fn(lambda: model.forward(params, {"tokens": tokens}),
+                     "flash_attention")
+    pre_p = profile_fn(lambda: model.prefill(params, {"tokens": tokens}, s),
+                       "flash_attention")
+    out.update(launches=L, forward_s=fwd_s, prefill_s=pre_s,
+               forward_busy_ms=fwd[0], prefill_busy_ms=pre_p[0],
+               fa_ms_per_call=pre_p[1] / max(pre_p[4], 1), whole_peak_gib=peak)
+    log(f"[gemma2] whole sequence {b} x {s}: forward {fwd_s:.3f} s wall, "
+        f"{fwd[0]:.2f} ms device busy ({fwd[2]} kernels); prefill "
+        f"{pre_s:.3f} s wall ({b * s / pre_s:.0f} tok/s), {pre_p[0]:.2f} ms "
+        f"device busy; peak memory {peak:.2f} GiB; flash_attention {L} "
+        f"launches per call, plain 0, {out['fa_ms_per_call']:.4f} ms device "
+        f"per call in the prefill ({pre_p[1] / pre_p[0]:.3f} of device "
+        f"time)")
+    for key, count, t in pre_p[3]:
+        log(f"[gemma2]   prefill {t:9.3f} ms  x{count:<5d} {key}")
+    del tokens, model, params
+    torch.cuda.empty_cache()
+
+    # the kernel against its plain version at the path's shape
+    flags = dict(window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+    q, k, v = fa_case(61, b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                      torch.bfloat16)
+    got = flash_attention(q, k, v, **flags)
+    want = flash_attention_plain(q, k, v, **flags)
+    torch.cuda.synchronize()
+    out["fa_err"] = (got.float() - want.float()).abs().max().item()
+    log(f"[kernel] flash_attention gemma2 shape (b {b}, s {s}, hq "
+        f"{cfg.n_heads}, hkv {cfg.n_kv_heads}, d {cfg.head_dim}, window "
+        f"{cfg.sliding_window}, softcap {cfg.attn_logit_softcap}): "
+        f"max_abs_err {out['fa_err']:.3e} (tol atol 2e-2)")
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=0.0)
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase2g_dense_family(greedy_gptneox):
+    """qwen2.5-3b, llama3.2-3b and gemma-2b at full width, bf16, seeded
+    weights, one after the other (each freed before the next is built):
+    greedy, batch 8, 8 x 256-token prompts x 64 new tokens, max_seq
+    1024, prefill chunks of 256; ``flash_decode`` exactly ``n_layers``
+    launches a decode step, then case (g).  Then gptneox-1b sampled
+    (temperature 0.8, top_k 8, seed 3) beside phase 2's greedy run: the
+    sampler's kernels and device time a step."""
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    out = {}
+    for arch in ("qwen2.5-3b", "llama3.2-3b", "gemma-2b"):
+        cfg = get_config(arch)
+        params = build_model(cfg).init(
+            torch.Generator(device="cuda").manual_seed(0), "cuda")
+        log(f"[{arch}] {cfg.n_layers} layers, hq {cfg.n_heads} / hkv "
+            f"{cfg.n_kv_heads}, d {cfg.head_dim}, vocab {cfg.vocab_size}: "
+            f"params {nbytes(*flatten(params).values()) / 2**30:.3f} GiB")
+        rng = np.random.default_rng(12)
+        prompts = [rng.integers(0, cfg.vocab_size, 256).tolist()
+                   for _ in range(8)]
+        out[arch] = _serve_dense(cfg, params, prompts, f"engine {arch}",
+                                 1024, 256)
+        del params
+        torch.cuda.empty_cache()
+
+    cfg = get_config("gptneox-1b")
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, 256).tolist()
+               for _ in range(8)]
+    sampled = _serve_dense(cfg, params, prompts, "engine gptneox sampled",
+                           1024, 32, temperature=0.8, top_k=8, seed=3)
+    out["gptneox-1b sampled"] = sampled
+    g = greedy_gptneox
+    log(f"[engine gptneox sampled] against phase 2's greedy run: "
+        f"{sampled['kernels_step']:.0f} kernels and "
+        f"{sampled['busy_ms_step']:.3f} ms device busy a step (greedy "
+        f"{g['kernels_step']:.0f}, {g['busy_ms_step']:.3f} ms): the sampler "
+        f"adds {sampled['kernels_step'] - g['kernels_step']:.0f} kernels and "
+        f"{sampled['busy_ms_step'] - g['busy_ms_step']:.3f} ms; "
+        f"{sampled['step_ms']:.2f} against {g['step_ms']:.2f} ms a step "
+        f"wall")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 class _Recording:
     """A model whose decode steps keep their logits (for diagnosis)."""
 
@@ -1918,6 +2215,86 @@ def phase3d_whole_sequence_parity():
                                  f"state {serr:.3e} above 1e-3")
 
 
+def phase3e_dense_family_parity():
+    """The sampler and the dense-decoder family on the card and on the
+    CPU, fp32, TF32 off.  The sampler at (8, 256000): ``random_bits`` and
+    ``uniform`` bit-identical, gumbel within atol 2e-6 (``log`` may
+    differ by an ulp), ``sample_tokens`` equal.  gemma2-2b cut to 2
+    layers (one local, one global) at full width, with the window cut
+    to 64 so that the rings wrap in a short run: 2 x 300-token prompts,
+    16 new tokens, greedy and sampled (temperature 0.8, top_k 8, seed
+    3); gemma-2b (MQA) cut to 2 layers, greedy.  Streams identical,
+    admission logits within atol 1e-3, ``flash_decode`` once per layer
+    per decode step on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import prng, sampler
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shape = (8, 256000)
+    key = prng.prng_key(3)
+    keys = sampler.fold_slot_keys(key, torch.arange(8, dtype=torch.int32),
+                                  torch.arange(300, 308, dtype=torch.int32))
+    g_err = 0.0
+    for k in (prng.fold_in(key, torch.tensor(7)), keys):
+        if not torch.equal(prng.random_bits(k.cuda(), shape[1:]).cpu(),
+                           prng.random_bits(k, shape[1:])):
+            raise AssertionError("random_bits: card and CPU differ")
+        u_c = prng.uniform(k.cuda(), shape[1:], prng.TINY, 1.0).cpu()
+        u_h = prng.uniform(k, shape[1:], prng.TINY, 1.0)
+        if not torch.equal(u_c.view(torch.int32), u_h.view(torch.int32)):
+            raise AssertionError("uniform: card and CPU bits differ")
+        g_c, g_h = prng.gumbel(k.cuda(), shape[1:]).cpu(), prng.gumbel(
+            k, shape[1:])
+        g_err = max(g_err, (g_c - g_h).abs().max().item())
+    if not g_err <= 2e-6:
+        raise AssertionError(f"gumbel: card vs CPU {g_err:.3e} above 2e-6")
+    logits = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        shape, np.float32) * 4)
+    seed = torch.arange(8, dtype=torch.int32) * 1000
+    pos = torch.arange(300, 308, dtype=torch.int32)
+    for temperature, top_k in ((0.8, 8), (1.0, 0)):
+        args = (key, temperature, top_k)
+        got = sampler.sample_tokens(logits.cuda(), args[0].cuda(), *args[1:],
+                                    slot_seed=seed.cuda(), pos=pos.cuda())
+        want = sampler.sample_tokens(logits, *args, slot_seed=seed, pos=pos)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"sample_tokens (temperature {temperature},"
+                                 f" top_k {top_k}): card {got.tolist()}, "
+                                 f"CPU {want.tolist()}")
+    log(f"[parity sampler] {shape}: random_bits and uniform bit-identical "
+        f"on card and CPU (a shared key and 8 folded keys), gumbel "
+        f"max_abs_err {g_err:.3e} (tol 2e-6), sample_tokens equal")
+
+    rng = np.random.default_rng(14)
+    for arch, over, modes in (
+            ("gemma2-2b", {"sliding_window": 64},
+             ({}, dict(temperature=0.8, top_k=8, seed=3))),
+            ("gemma-2b", {}, ({},))):
+        cfg3 = dataclasses.replace(get_config(arch), n_layers=2,
+                                   param_dtype="float32",
+                                   compute_dtype="float32", **over)
+        model3 = build_model(cfg3)
+        params3 = model3.init(torch.Generator().manual_seed(0), "cpu")
+        prompts3 = [rng.integers(0, cfg3.vocab_size, 300).tolist()
+                    for _ in range(2)]
+        for kw in modes:
+            label = (f"parity {arch} fp32 2-layer full width"
+                     f"{', window 64' if over else ''}, "
+                     f"{'sampled' if kw else 'greedy'}")
+            before = flash_decode.launches
+            runs = _serve_both(model3, params3, prompts3, max_seq=320,
+                               **kw)
+            launched = flash_decode.launches - before
+            steps = len(runs["cuda"][2])
+            if launched != cfg3.n_layers * steps or not steps:
+                raise AssertionError(f"{label}: flash_decode launched "
+                                     f"{launched} times in {steps} steps")
+            _check_parity(label, runs)
+        del model3, params3
+
+
 def phase4_characterize():
     """``repro_torch.launch.characterize`` at the reference example's
     sizes, the counters set to 0 just before and read just after; then a
@@ -1987,7 +2364,7 @@ def main() -> int:
         f"{model.peak_flops['float32'] / 1e12:g} TFLOP/s, fp32 "
         f"{model.vector_flops['float32'] / 1e12:g} TFLOP/s")
     log("[card] " + compat.report().replace("\n", "; "))
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.build_all(SOURCES)
     log(f"[build] {', '.join(SOURCES)}: {time.perf_counter() - t0:.2f} s")
     for src in SOURCES:
@@ -1998,6 +2375,13 @@ def main() -> int:
         for line, count in sorted(lines.items()):
             log(f"[build]   {src}: {count} x {line}")
 
+    t_phase = [time.perf_counter()]
+
+    def stamp(phases: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] phases {phases}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     # ---- 1: kernels vs plain on the card ----------------------------- #
     fd_entries = phase1_flash_decode(hbm, peak_bf16)
     fdq_entries = phase1b_flash_decode_quant(hbm, peak_bf16)
@@ -2005,6 +2389,7 @@ def main() -> int:
     probe_entries = phase1d_probes(model)
     ssd_entries = phase1e_ssd_scan(model)
     fa_entries = phase1f_flash_attention(model)
+    stamp("1-1f")
 
     # ---- 2: full-width serving, then the GEMM path ------------------- #
     cfg = get_config("gptneox-1b")
@@ -2031,17 +2416,27 @@ def main() -> int:
     whole = phase2e_whole_sequence(hbm, peak_bf16)
     for e in fa_entries:
         e["launches"] = whole["launches"]
+    stamp("2-2e")
+    phase2f_gemma2(hbm, peak_bf16)
+    stamp("2f")
+    phase2g_dense_family(dense)
+    stamp("2g")
 
     # ---- 3: card vs CPU, fp32 ------------------------------------------ #
     model3, params3, prompts3 = phase3_parity(cfg)
     phase3b_quant_parity(model3, params3, prompts3)
     phase3c_mamba2_parity()
     phase3d_whole_sequence_parity()
+    phase3e_dense_family_parity()
+    stamp("3-3e")
 
     # ---- 4: the probe suite -------------------------------------------- #
     counts = phase4_characterize()
     for e in probe_entries:
         e["launches"] = counts[e["name"].split("[")[0]]
+    stamp("4")
+    log(f"[time] phases 0 (the build) to 4: "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- result lines -------------------------------------------------- #
     for line in smi.splitlines():                # again, near the end

@@ -1,17 +1,23 @@
 """Config registry of the port.  It holds the configs whose model code has
-been ported: gptneox-1b (attention decoder) and mamba2-2.7b (SSM); the
-other architectures of ``repro.configs`` arrive with their slices."""
+been ported: the dense attention decoders gptneox-1b, gemma2-2b,
+qwen2.5-3b, llama3.2-3b and gemma-2b, and the SSM mamba2-2.7b; the other
+architectures of ``repro.configs`` arrive with their slices."""
 
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs.base import ArchConfig, BlockSpec  # noqa: F401
+from repro_torch.configs.gemma2_2b import CONFIG as GEMMA2_2B
+from repro_torch.configs.gemma_2b import CONFIG as GEMMA_2B
 from repro_torch.configs.gptneox_1b import CONFIG as GPTNEOX_1B
+from repro_torch.configs.llama3p2_3b import CONFIG as LLAMA3P2_3B
 from repro_torch.configs.mamba2_2p7b import CONFIG as MAMBA2_2P7B
+from repro_torch.configs.qwen2p5_3b import CONFIG as QWEN2P5_3B
 
-REGISTRY: Dict[str, ArchConfig] = {c.name: c
-                                   for c in (GPTNEOX_1B, MAMBA2_2P7B)}
+REGISTRY: Dict[str, ArchConfig] = {
+    c.name: c for c in (GPTNEOX_1B, MAMBA2_2P7B, GEMMA2_2B, QWEN2P5_3B,
+                        LLAMA3P2_3B, GEMMA_2B)}
 
 
 def get_config(name: str) -> ArchConfig:

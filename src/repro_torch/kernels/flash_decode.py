@@ -20,7 +20,8 @@ wrappers use these.
 it runs :func:`flash_decode_plain`; on a CUDA device it launches the
 kernel, or raises.  There is no fallback from one to the other.
 ``flash_decode.launches`` counts kernel launches (one a call, split or
-not) and nothing else.
+not) and nothing else; ``flash_decode_plain.calls`` counts calls of the
+plain version.
 """
 
 from __future__ import annotations
@@ -134,6 +135,7 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     ``decode_attention`` arithmetic (fp32 scores masked to -1e30,
     softmax, ``p`` cast to the cache dtype before PV).  q (b, 1, hq, d),
     cache (b, S, hkv, d), slot_pos (b, S), pos (b,) -> (b, 1, hq, d)."""
+    flash_decode_plain.calls += 1
     return decode_attention(q, k_cache, v_cache, slot_pos, pos,
                             window=window, softcap=softcap, scale=scale)
 
@@ -231,3 +233,4 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 flash_decode.launches = 0
+flash_decode_plain.calls = 0

@@ -15,7 +15,8 @@ through ``flash_decode``'s ``schedule`` and ``copy_width``.
 the CPU it runs :func:`flash_decode_quant_plain`; on a CUDA device it
 launches the kernel, or raises.  There is no fallback from one to the
 other.  ``flash_decode_quant.launches`` counts kernel launches and
-nothing else.
+nothing else; ``flash_decode_quant_plain.calls`` counts calls of the
+plain version.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ def flash_decode_quant_plain(q: torch.Tensor, kv_cache: dict,
     """The kernel's function in plain PyTorch, the reference engine's
     XLA route: the cache dequantized to q's dtype (``cache_kv``), then
     ``decode_attention`` (p cast to that dtype before PV)."""
+    flash_decode_quant_plain.calls += 1
     k, v = cache_kv(kv_cache, fmt, q.shape[-1], out_dtype=q.dtype)
     return decode_attention(q, k, v, kv_cache["slot_pos"], pos,
                             window=window, softcap=softcap, scale=scale)
@@ -161,3 +163,4 @@ def flash_decode_quant(q: torch.Tensor, kv_cache: dict, pos: torch.Tensor,
 
 
 flash_decode_quant.launches = 0
+flash_decode_quant_plain.calls = 0

@@ -6,9 +6,15 @@ batching, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --requests 8 --batch 8 --max-seq 1024 --prompt-len 512 \
         --max-new 64 --prefill-chunk 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+        --requests 8 --batch 8 --max-seq 1024 --prompt-len 256 \
+        --max-new 64 --temperature 0.8
 
 ``--arch`` takes any config of ``repro_torch.configs`` (gptneox-1b,
-mamba2-2.7b).
+gemma2-2b, qwen2.5-3b, llama3.2-3b, gemma-2b, mamba2-2.7b).
+``--temperature`` above 0 samples (engine seed 0, every vocabulary
+entry a candidate) where 0 decodes greedily, as the reference's
+launcher does.
 
 Weights come from the port's own seeded init (``torch.Generator`` seed
 0); prompts from ``numpy.random.default_rng(1)``.  ``--device cpu`` runs
@@ -41,6 +47,7 @@ def main(argv=None) -> None:
     ap.add_argument("--max-seq", type=int, default=256)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--decode-block", type=int, default=16,
                     help="decode steps fused per host read (1 = per-token)")
     ap.add_argument("--prefill-chunk", type=int, default=32,
@@ -65,6 +72,7 @@ def main(argv=None) -> None:
 
     engine = ServeEngine(model, params, batch=args.batch,
                          max_seq=args.max_seq,
+                         temperature=args.temperature,
                          decode_block=args.decode_block,
                          prefill_chunk=args.prefill_chunk, device=device)
     rng = np.random.default_rng(1)

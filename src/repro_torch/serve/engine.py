@@ -1,22 +1,32 @@
 """Batched serving engine with continuous batching (counterpart of
-``repro.serve.engine``, greedy serving).
+``repro.serve.engine``).
 
 A fixed pool of ``batch`` slots shares one cache: ring KV for attention
 layers, conv carries and the fp32 state for SSM layers (the slot-state
 protocol of ``models.slotstate``; the engine does not know the family).
 Admission is chunked pooled prefill: a prompt streams into its slot's
 region in chunks of ``prefill_chunk`` tokens.  Decode is the fused loop
-(:meth:`ServeEngine.decode_loop`): K steps of decode -> greedy sample ->
+(:meth:`ServeEngine.decode_loop`): K steps of decode -> sample ->
 bookkeeping run back to back on the device with no host read inside;
 tokens and emit codes come back in one read per block (:meth:`_harvest`).
 Inactive slots ride along masked: they neither sample nor write.
+
+Sampling, as in the reference: ``temperature`` 0 is greedy; above 0 the
+logits are divided by it, cut to the ``top_k`` largest (0 = all) and
+sampled under a key folded from the engine's ``seed``, the request id
+(kept per slot in the device state's ``seed``) and the position the
+token will occupy (``serve.sampler.sample_tokens``, bit for bit the
+reference's ``jax.random`` draws).  A sampled stream therefore depends
+only on (seed, request, position): not on the batch, the slot or the
+decode block size.
 
 State is updated **in place**, unlike the reference's functional
 arrays: the cache's pool rows are written with ``index_put_`` or
 ``copy_`` (the pool is about 1 GB at full gptneox-1b width, batch 8,
 max_seq 1024, and 1.34 GB of SSM state at full mamba2-2.7b width, batch
 8), and the device-resident slot state (``pos``, ``remaining``,
-``last_token``, ``active``) with ``copy_`` and indexed writes.
+``last_token``, ``active``, ``seed``) with ``copy_`` and indexed
+writes.
 
 Entry points run on the card: ``device=None`` resolves to ``cuda`` and
 raises when there is none.  Pass ``device="cpu"`` to run the plain
@@ -33,10 +43,9 @@ does (``qmatmul`` cannot read this store: it is blocked along each
 leaf's last axis, not along k).
 
 Not ported yet (they raise ``NotImplementedError``): mesh serving,
-admission policies, speculation, fault injection and cancel, sampled
-decoding (``temperature > 0``), and the model families other than the
-attention decoder and the SSM (hybrid, MoE, enc-dec, VLM), which the
-model refuses.
+admission policies, speculation, fault injection and cancel, and the
+model families other than the attention decoder and the SSM (hybrid,
+MoE, enc-dec, VLM), which the model refuses.
 """
 
 from __future__ import annotations
@@ -51,7 +60,8 @@ import torch
 from repro_torch.compat import resolve_device
 from repro_torch.models.model import Model, build_model
 from repro_torch.serve.quant import dequantize_tree, quantize_tree
-from repro_torch.serve.sampler import check_temperature, sample_tokens
+from repro_torch.serve.prng import prng_key
+from repro_torch.serve.sampler import sample_tokens
 
 # terminal request states; every submitted request ends in exactly one
 STATUSES = ("ok",                  # full generation delivered
@@ -112,8 +122,9 @@ class ServeEngine:
     pattern)."""
 
     def __init__(self, model: Model, params: dict, batch: int,
-                 max_seq: int, temperature: float = 0.0,
-                 decode_block: int = 16, prefill_chunk: int = 32,
+                 max_seq: int, temperature: float = 0.0, top_k: int = 0,
+                 seed: int = 0, decode_block: int = 16,
+                 prefill_chunk: int = 32,
                  device=None, *, kv_format: Any = None,
                  weight_format: Optional[str] = None, packed: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16,
@@ -124,7 +135,6 @@ class ServeEngine:
                 raise NotImplementedError(
                     f"ServeEngine({name}=...) arrives with a later slice "
                     f"of the port")
-        check_temperature(temperature)
         self.device = resolve_device(device)
         if kv_format:
             # the model's cache layer quantizes: every prefill and decode
@@ -146,6 +156,11 @@ class ServeEngine:
         self.params = params
         self.batch = batch
         self.max_seq = max_seq
+        self._temperature = temperature
+        self._top_k = top_k
+        # the base key; each token's key is folded from it, the request
+        # id and the position on the device (serve.sampler)
+        self._sample_key = prng_key(seed, self.device)
         self.decode_block = max(int(decode_block), 1)
         self.prefill_chunk = max(
             1, min(int(prefill_chunk), model.min_cache_capacity(max_seq)))
@@ -172,13 +187,31 @@ class ServeEngine:
         self.decode_steps = 0          # fused decode steps run
         self.dispatches = 0            # decode blocks run (host reads)
 
+    # read-only, as in the reference (there they are traced into the
+    # compiled loop): build a new engine to change them
+    @property
+    def temperature(self) -> float:
+        return self._temperature
+
+    @property
+    def top_k(self) -> int:
+        return self._top_k
+
     # -- device state --------------------------------------------------- #
     def _init_state(self) -> dict:
         b, dev = self.batch, self.device
         return {"pos": torch.zeros(b, dtype=torch.int32, device=dev),
                 "remaining": torch.zeros(b, dtype=torch.int32, device=dev),
                 "last_token": torch.zeros(b, dtype=torch.int32, device=dev),
-                "active": torch.zeros(b, dtype=torch.bool, device=dev)}
+                "active": torch.zeros(b, dtype=torch.bool, device=dev),
+                "seed": torch.zeros(b, dtype=torch.int32, device=dev)}
+
+    def _sample(self, logits: torch.Tensor, seed: torch.Tensor,
+                pos: torch.Tensor) -> torch.Tensor:
+        """Tokens (b,) from logits (b, V) for requests ``seed`` at
+        positions ``pos`` (both (b,) int32 on the device)."""
+        return sample_tokens(logits, self._sample_key, self.temperature,
+                             self.top_k, slot_seed=seed, pos=pos)
 
     # -- request management -------------------------------------------- #
     def submit(self, prompt: List[int], max_new_tokens: int = 16) -> int:
@@ -213,11 +246,16 @@ class ServeEngine:
                                   "serving-robustness slice")
 
     def _admit_update(self, logits: torch.Tensor, slot: int, plen: int,
-                      max_new: int) -> torch.Tensor:
-        """Greedy first token from the prefill logits and the slot's
-        state write (indexed, in place).  Returns the token (device)."""
-        tok = sample_tokens(logits)[0]
+                      max_new: int, rid: int) -> torch.Tensor:
+        """The first token, sampled from the prefill logits at position
+        ``plen`` under request ``rid``'s key fold (as the loop samples),
+        and the slot's state write (indexed, in place).  Returns the
+        token (device)."""
+        seed, pos = torch.tensor([[rid], [plen]], dtype=torch.int32,
+                                 device=self.device)
+        tok = self._sample(logits, seed, pos)[0]
         st = self.state
+        st["seed"][slot] = rid
         st["pos"][slot] = plen
         st["remaining"][slot] = max_new - 1
         st["last_token"][slot] = tok
@@ -246,7 +284,7 @@ class ServeEngine:
             req = self.queue.popleft()
             logits = self._prefill_into_slot(slot, req)
             tok = self._admit_update(logits, slot, req.trunk_len,
-                                     req.max_new_tokens)
+                                     req.max_new_tokens, req.request_id)
             self.slot_req[slot] = req
             self.out_tokens[slot] = [int(tok)]
             req.first_token_t = time.monotonic()
@@ -256,8 +294,8 @@ class ServeEngine:
     # -- fused decode --------------------------------------------------- #
     def _decode_block(self, k: int):
         """K decode steps back to back, with no host read: decode ->
-        non-finite sentinel -> greedy sample -> slot bookkeeping, all on
-        the device.  Returns (tokens (k, b), emit codes (k, b)) int32.
+        non-finite sentinel -> sample at ``pos + 1`` -> slot
+        bookkeeping, all on the device.  Returns (tokens (k, b), emit codes (k, b)) int32.
 
         A slot whose logits go non-finite emits EMIT_FAULT, keeps its
         pos/remaining/last_token, and drops out of ``active`` in the same
@@ -272,8 +310,10 @@ class ServeEngine:
                                             active=active)
             bad = active & ~torch.isfinite(logits).all(dim=-1)
             ok = active & ~bad
-            tok = torch.where(ok, sample_tokens(logits), st["last_token"])
-            new_pos = torch.where(ok, st["pos"] + 1, st["pos"])
+            nxt = st["pos"] + 1
+            tok = torch.where(ok, self._sample(logits, st["seed"], nxt),
+                              st["last_token"])
+            new_pos = torch.where(ok, nxt, st["pos"])
             new_rem = st["remaining"] - ok.to(torch.int32)
             finished = ok & ((new_rem <= 0) | (new_pos >= self.max_seq - 1))
             st["pos"].copy_(new_pos)

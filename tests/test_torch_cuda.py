@@ -38,8 +38,15 @@ bf16).  ``flash_attention``, the tolerances of the reference's own
 kernel test (``tests/test_kernels.py``): fp32 atol 2e-5; bf16 atol 2e-2
 (the plain version rounds the normalized p to bf16 before PV, as the
 reference does, the kernel the running-max p; both accumulate in fp32),
-over the rows that see a key; a row that sees none must be 0.
+over the rows that see a key; a row that sees none must be 0.  The
+sampler (``serve.prng``, ``serve.sampler``): threefry draws and
+uniforms bit-identical on card and CPU, gumbel values within atol 2e-6
+(``log`` may differ by an ulp between the two), sampled tokens equal;
+the gemma2 / gemma-2b reduced engines (fp32, TF32 off) give the CPU's
+streams, greedy and sampled.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -65,7 +72,7 @@ from repro_torch.kernels.ssd_scan import plan as ssd_plan
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import attention as attn
 from repro_torch.models.model import build_model
-from repro_torch.serve import ServeEngine
+from repro_torch.serve import ServeEngine, prng, sampler
 
 pytestmark = pytest.mark.cuda
 
@@ -249,6 +256,100 @@ def test_engine_card_matches_cpu(cuda):
         launched = flash_decode.launches - before
         assert launched == (cfg.n_layers * eng.decode_steps
                             if dev == "cuda" else 0)
+    assert streams["cuda"] == streams["cpu"]
+
+
+def test_sampler_card_matches_cpu(cuda):
+    """The threefry draws on the card are the CPU's bit for bit (uniforms
+    too), gumbel values within 2e-6 (``log`` may differ by an ulp), and
+    the sampled tokens equal, at the full vocabulary of gemma2-2b."""
+    key = prng.fold_in(prng.prng_key(3), torch.tensor(7))
+    keys = sampler.fold_slot_keys(prng.prng_key(3),
+                                  torch.arange(8, dtype=torch.int32),
+                                  torch.arange(100, 108, dtype=torch.int32))
+    shape = (8, 256000)
+    for k in (key, keys):
+        assert torch.equal(prng.random_bits(k.cuda(), shape[1:]).cpu(),
+                           prng.random_bits(k, shape[1:]))
+        u = prng.uniform(k.cuda(), shape[1:], prng.TINY, 1.0).cpu()
+        assert torch.equal(u.view(torch.int32),
+                           prng.uniform(k, shape[1:], prng.TINY,
+                                        1.0).view(torch.int32))
+        torch.testing.assert_close(prng.gumbel(k.cuda(), shape[1:]).cpu(),
+                                   prng.gumbel(k, shape[1:]), atol=2e-6,
+                                   rtol=0)
+    logits = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        shape, np.float32) * 4)
+    seed = torch.arange(8, dtype=torch.int32) * 1000
+    pos = torch.arange(8, dtype=torch.int32) + 300
+    for temperature, top_k in ((0.8, 8), (1.0, 0), (0.0, 0)):
+        args = (prng.prng_key(3), temperature, top_k)
+        got = sampler.sample_tokens(logits.cuda(), *args,
+                                    slot_seed=seed.cuda(), pos=pos.cuda())
+        want = sampler.sample_tokens(logits, *args, slot_seed=seed, pos=pos)
+        assert torch.equal(got.cpu(), want)
+
+
+def _card_vs_cpu_streams(arch, window=None, **kw):
+    """An fp32 reduced model's engine on the card and on the CPU (TF32
+    off): streams by device, and the decode kernel launches per layer per
+    step on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    if window:
+        cfg = dataclasses.replace(cfg, sliding_window=window)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(model, params, batch=2, max_seq=96,
+                          decode_block=7, prefill_chunk=8, device=dev, **kw)
+        eng.submit(list(range(1, 41)), max_new_tokens=30)
+        eng.submit([9, 8, 7], max_new_tokens=12)
+        before = flash_decode.launches
+        streams[dev] = [(r.status, r.tokens) for r in eng.run()]
+        launched = flash_decode.launches - before
+        assert launched == (cfg.n_layers * eng.decode_steps
+                            if dev == "cuda" else 0)
+    return streams
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_gemma2_engine_card_matches_cpu(cuda, temperature):
+    """gemma2-2b reduced, window 16: a 40-token prompt and 30 new tokens
+    wrap the local rings in prefill and in decode; greedy and sampled
+    (top_k 8, seed 3) streams equal on card and CPU."""
+    streams = _card_vs_cpu_streams("gemma2-2b", window=16,
+                                   temperature=temperature, top_k=8, seed=3)
+    assert streams["cuda"] == streams["cpu"]
+
+
+def test_sampled_decode_block_makes_no_sync(cuda):
+    """The fused loop, sampling included, makes no implicit device-to-host
+    synchronization (a host value copied to the card synchronizes too):
+    the block's one host read is ``_harvest``'s, after it."""
+    cfg = get_config("gemma2-2b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    eng = ServeEngine(model, params, batch=2, max_seq=64, temperature=0.8,
+                      top_k=8, seed=3, decode_block=4, prefill_chunk=8,
+                      device="cuda")
+    eng.submit(list(range(1, 11)), max_new_tokens=20)
+    eng.submit([3, 4], max_new_tokens=20)
+    eng.decode_loop(4)            # admission and a first block
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, _ = eng._decode_block(4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert toks.shape == (4, 2)
+
+
+def test_gemma_2b_engine_card_matches_cpu(cuda):
+    """gemma-2b reduced (one KV head for 4 q-heads): greedy streams equal
+    on card and CPU."""
+    streams = _card_vs_cpu_streams("gemma-2b")
     assert streams["cuda"] == streams["cpu"]
 
 

@@ -242,6 +242,20 @@ def test_flash_attention_module_is_checked():
             "src/repro_torch/models/model.py"} <= names
 
 
+def test_sampler_and_config_modules_are_checked():
+    """The PRNG, the sampler and the dense-decoder configs are among the
+    files the import check reads, and the registry serves them."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/serve/prng.py",
+            "src/repro_torch/serve/sampler.py",
+            "src/repro_torch/configs/gemma2_2b.py",
+            "src/repro_torch/configs/qwen2p5_3b.py",
+            "src/repro_torch/configs/llama3p2_3b.py",
+            "src/repro_torch/configs/gemma_2b.py"} <= names
+    for arch in ("gemma2-2b", "qwen2.5-3b", "llama3.2-3b", "gemma-2b"):
+        assert get_config(arch).name == arch
+
+
 def test_flash_attention_kernel_path_without_library_raises(monkeypatch):
     """The flash_attention kernel path with no compiler to build its
     library raises; it does not fall back to the plain version, and

@@ -121,8 +121,7 @@ def test_max_seq_finish_matches_reference(models):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"admission": object()}, {"spec": object()},
-    {"temperature": 0.7}])
+    {"mesh": object()}, {"admission": object()}, {"spec": object()}])
 def test_later_slice_options_raise(models, kwargs):
     _, _, model, params = models
     with pytest.raises(NotImplementedError):
