@@ -161,6 +161,31 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    ``n_layers`` launches a decode step, case (g).  Then gptneox-1b
    sampled (temperature 0.8, top_k 8, seed 3) with phase 2's traffic:
    its kernels and device-busy ms a step beside phase 2's greedy run;
+2h. jamba-v0.1-52b at full width (d_model 4096, 16 experts top-2 on
+   every second block, an attention block and 7 SSM blocks of 128 heads
+   over a state of 16 a period, vocab 65536), cut to 16 layers (two
+   periods: 52 GB of bf16 weights; the full 32 do not fit one card),
+   seeded weights: batch 8, max_seq 1024, 8 x 256-token prompts x 64
+   new tokens, prefill chunks of 256, served with dense KV and with fp8
+   KV; ``flash_decode`` (or ``flash_decode_quant``) exactly 2 launches a
+   decode step, ``ssd_scan`` exactly 14 a prefill chunk of a slot, every
+   plain version never; the MoE calls' share of a 16-step decode
+   block's device timeline (CUDA events); then ``Model.forward`` and
+   ``Model.prefill`` of 8 x 2048 tokens (2 ``flash_attention`` and 14
+   ``ssd_scan`` launches a call) and 16 decode steps, each kernel's
+   device ms a call profiled;
+2i. kimi-k2-1t-a32b cut to 1 layer (384 experts top-8 and a shared
+   expert) and llama4-maverick-400b-a17b cut to 2 (a dense and a MoE
+   FFN of 128 experts top-1 with a shared expert), full width, bf16,
+   phase 2's traffic in 256-token chunks, each freed before the next;
+   ``flash_decode`` exactly n_layers launches a decode step;
+2j. robustness on full-width gptneox-1b: a ``logits_nan`` fault armed on
+   one request and a cancel of another inside a run, with the next
+   16-step block, under ``torch.cuda.set_sync_debug_mode("error")``;
+   the six other streams bit-identical to a clean run, the accounting
+   balanced, the watchdog clean; a ``poisson_trace`` replayed under the
+   virtual clock through a queue of 4 that rejects, twice, with the
+   same report;
 3. the dense path on the card and on the CPU in fp32 with TF32 off, full
    width, 2 layers, the same seeded weights: 2 requests x 32-token
    prompts x 16 new tokens, decode_block 7.  Greedy streams must be
@@ -189,6 +214,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    sampled (temperature 0.8, top_k 8, seed 3); gemma-2b (MQA) greedy:
    streams identical, admission logits within atol 1e-3,
    ``flash_decode`` once per layer per decode step on the card;
+3f. jamba-v0.1-52b, kimi-k2-1t-a32b and llama4-maverick-400b-a17b
+   reduced (fp32, TF32 off) at capacity factors 8.0 and 1.25 (the
+   padded prefill chunks drop tokens), card against CPU, greedy and
+   sampled: streams identical, admission logits within atol 1e-4;
 4. the probe suite ``repro_torch.launch.characterize`` on the card at the
    reference example's sizes, with every probe kernel's launch count and
    every plain version's call count set to 0 just before and read just
@@ -1235,12 +1264,13 @@ def phase1f_flash_attention(model):
     return entries
 
 
-def serve(eng, prompts, counter, expected, label: str) -> dict:
+def serve(eng, prompts, counter, expected, label: str, also=()) -> dict:
     """Warm up, then serve ``prompts`` x 64 new tokens with the launch
     count of ``counter`` (a kernel wrapper) set to 0 just before and read
     just after.  Checks every request and that the count equals
-    ``expected(decode steps)``; prints and returns the end-to-end
-    metrics."""
+    ``expected(decode steps)``, and the same for each (wrapper, expected)
+    pair of ``also``; prints and returns the end-to-end metrics (the
+    launches of ``also`` under ``also_launches``)."""
     eng.submit(list(range(1, 41)), max_new_tokens=4)       # warm-up
     eng.run()
     eng.reset()
@@ -1248,10 +1278,13 @@ def serve(eng, prompts, counter, expected, label: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for p in prompts:
         eng.submit(p, max_new_tokens=64)
+    for other, _ in also:
+        other.launches = 0
     counter.launches = 0
     t_run = time.monotonic()
     results = eng.run()
     launches, steps = counter.launches, eng.decode_steps
+    also_launches = {other.__name__: other.launches for other, _ in also}
     torch.cuda.synchronize()
     bad = [(r.request_id, r.status, len(r.tokens)) for r in results
            if r.status != "ok" or len(r.tokens) != 64]
@@ -1265,10 +1298,16 @@ def serve(eng, prompts, counter, expected, label: str) -> dict:
         raise AssertionError(f"{label}: {counter.__name__} launched "
                              f"{launches} times; expected "
                              f"{expected(steps)} ({steps} decode steps)")
+    for other, want in also:
+        got = also_launches[other.__name__]
+        if got != want(steps) or got == 0:
+            raise AssertionError(f"{label}: {other.__name__} launched {got} "
+                                 f"times; expected {want(steps)}")
     t_admitted = max(r.first_token_t for r in results)
     t_done = max(r.finish_t for r in results)
     decode_s = t_done - t_admitted
     out = {"launches": launches, "steps": steps,
+           "also_launches": also_launches,
            "step_ms": 1e3 * decode_s / steps,
            "tok_s": sum(len(r.tokens) - 1 for r in results) / decode_s,
            "prefill_s": t_admitted - t_run,
@@ -1276,7 +1315,8 @@ def serve(eng, prompts, counter, expected, label: str) -> dict:
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     log(f"[{label}] {len(results)} requests ok x 64 tokens; {steps} decode "
         f"steps in {eng.dispatches} blocks; {counter.__name__} launches "
-        f"{launches}")
+        f"{launches}" + "".join(f"; {n} launches {c}"
+                                for n, c in also_launches.items()))
     log(f"[{label}] prefill {out['prefill_s']:.3f} s ({len(prompts)} "
         f"prompts, {sum(map(len, prompts))} tokens), "
         f"decode {out['tok_s']:.1f} tok/s, {out['step_ms']:.2f} ms per "
@@ -1693,6 +1733,8 @@ def _pool_check(label: str, eng) -> dict:
     rows = torch.ones(eng.batch, dtype=torch.bool, device="cuda")
     errs = {}
     for i, blk in enumerate(cfg.block_pattern()):
+        if blk.mixer != "attn":
+            continue
         kv = {n: t[0] for n, t in eng.cache[f"pos{i}"]["kv"].items()}
         flags = dict(window=blk.window, softcap=cfg.attn_logit_softcap)
         fmt = cfg.kv_format_for(i)
@@ -1933,6 +1975,344 @@ def phase2g_dense_family(greedy_gptneox):
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def _moe_share(fn):
+    """``fn()`` with CUDA events recorded around every ``apply_moe`` call
+    and around the whole: (the MoE calls' share of the window on the
+    device timeline, their count, the window's ms)."""
+    from repro_torch.models import moe
+    apply, marks = moe.apply_moe, []
+
+    def timed(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        out = apply(*args, **kwargs)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    t0, t1 = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+    moe.apply_moe = timed
+    try:
+        t0.record()
+        fn()
+        t1.record()
+    finally:
+        moe.apply_moe = apply
+    torch.cuda.synchronize()
+    total = t0.elapsed_time(t1)
+    return sum(a.elapsed_time(b) for a, b in marks) / total, len(marks), total
+
+
+def phase2h_jamba(hbm, peak_bf16):
+    """jamba-v0.1-52b at full width (d_model 4096, 32 q-heads over 8 KV
+    heads of 128, d_ff 14336, 16 experts top-2, SSD with 128 heads of
+    p 64 over n 16, vocab 65536), cut to 16 layers (2 periods of 8: the
+    52 GB of bf16 weights of the cut fit one card, the full 103 GB do
+    not), bf16, seeded weights.  Served with dense KV, then fp8 KV:
+    batch 8, max_seq 1024, 8 x 256-token prompts x 64 new tokens,
+    prefill chunks of 256, decode blocks of 16; ``flash_decode`` (or
+    ``flash_decode_quant``) exactly 2 launches a decode step (one per
+    attention layer), ``ssd_scan`` exactly 14 a prefill chunk of a slot
+    (one per SSM layer), the other decode kernel and every plain version
+    never; case (g) on the attention ring.  The MoE calls' share of a
+    16-step decode block's device timeline (CUDA events around each
+    call).  Then ``Model.forward`` and ``Model.prefill`` of 8 x 2048
+    tokens: ``flash_attention`` exactly 2 launches and ``ssd_scan`` 14
+    per call, plain versions never, the prefill's last logits within
+    atol 1e-3 of the forward's; 16 greedy decode steps (``flash_decode``
+    2 a step); device time of each kernel a call, profiled."""
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_plain)
+    from repro_torch.kernels.flash_decode_quant import (
+        flash_decode_quant, flash_decode_quant_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=16)
+    model = build_model(cfg)
+    pattern = cfg.block_pattern()
+    n_attn = cfg.n_periods * sum(b.mixer == "attn" for b in pattern)
+    n_ssm = cfg.n_periods * sum(b.mixer == "ssm" for b in pattern)
+    n_moe = cfg.n_periods * sum(b.ffn == "moe" for b in pattern)
+    (params, init_s) = _timed(lambda: model.init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    log(f"[jamba] {cfg.name} cut to {cfg.n_layers} layers ({n_attn} "
+        f"attention, {n_ssm} SSM, {n_moe} MoE FFNs of "
+        f"{cfg.moe_num_experts} experts top-{cfg.moe_top_k}): params "
+        f"{nbytes(*flatten(params).values()) / 2**30:.3f} GiB "
+        f"({cfg.param_count() / 1e9:.2f}B at full depth), seeded init "
+        f"{init_s:.1f} s")
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab_size, 256).tolist()
+               for _ in range(8)]
+    out = {}
+    for kv_format in (None, "float8_e4m3fn"):
+        label = f"engine jamba {kv_format or 'dense'} KV"
+        counter, other = ((flash_decode_quant, flash_decode) if kv_format
+                          else (flash_decode, flash_decode_quant))
+        eng = ServeEngine(model, params, batch=8, max_seq=1024,
+                          decode_block=16, prefill_chunk=256, device="cuda",
+                          kv_format=kv_format)
+        log(f"[{label}] KV pool {eng.kv_stats['kv_bytes']} B, slot state "
+            f"{sum(nbytes(*e['ssm'].values()) for e in eng.cache.values() if 'ssm' in e)} B")
+        other.launches = 0
+        flash_decode_plain.calls = flash_decode_quant_plain.calls = 0
+        ssd_scan_plain.calls = 0
+        r = serve(eng, prompts, counter, lambda steps: n_attn * steps, label,
+                  also=((ssd_scan, lambda steps: len(prompts) * n_ssm),))
+        stray = (other.launches, flash_decode_plain.calls,
+                 flash_decode_quant_plain.calls, ssd_scan_plain.calls)
+        if stray != (0, 0, 0, 0):
+            raise AssertionError(f"{label}: {other.__name__} launches, "
+                                 f"plain calls (dense, quant, ssd) {stray}")
+        eng.reset()
+        for p in prompts:
+            eng.submit(p, max_new_tokens=40)
+        eng.decode_loop(16)                    # admission + first block
+        share, calls, window = _moe_share(lambda: eng.decode_loop(16))
+        if calls != n_moe * 16:
+            raise AssertionError(f"{label}: {calls} MoE calls in 16 steps")
+        log(f"[{label}] MoE FFNs: {share:.3f} of a 16-step decode block's "
+            f"device timeline ({window:.2f} ms, {calls} calls, "
+            f"{share * window / calls:.3f} ms a call)")
+        r.update(moe_share=share, pool_err=_pool_check(label, eng))
+        out[kv_format or "dense"] = r
+        del eng
+        torch.cuda.empty_cache()
+
+    # the whole-sequence path
+    b, s, new = 8, 2048, 16
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
+    batch = {"tokens": tokens}
+    model.forward(params, {"tokens": tokens[:, :512]})          # warm-up
+    model.prefill(params, {"tokens": tokens[:, :512]}, 576)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def zero():
+        flash_attention.launches = flash_attention_plain.calls = 0
+        ssd_scan.launches = ssd_scan_plain.calls = flash_decode.launches = 0
+
+    def expect(label, want):
+        got = (flash_attention.launches, flash_attention_plain.calls,
+               ssd_scan.launches, ssd_scan_plain.calls,
+               flash_decode.launches)
+        if got != want:
+            raise AssertionError(f"jamba {label}: (flash_attention, plain, "
+                                 f"ssd_scan, plain, flash_decode) {got}, "
+                                 f"expected {want}")
+
+    zero()
+    (logits, aux), fwd_s = _timed(lambda: model.forward(params, batch))
+    expect("forward", (n_attn, 0, n_ssm, 0, 0))
+    fa_read, ssd_read = flash_attention.launches, ssd_scan.launches
+    if logits.shape != (b, s, cfg.vocab_size) or not torch.isfinite(
+            logits).all() or not all(torch.isfinite(v) for v in
+                                     aux.values()):
+        raise AssertionError("jamba forward: logits or aux not finite")
+    last = logits[:, -1].clone()
+    del logits
+    zero()
+    (pre, cache), pre_s = _timed(lambda: model.prefill(params, batch,
+                                                       s + new))
+    expect("prefill", (n_attn, 0, n_ssm, 0, 0))
+    err = (pre - last).abs().max().item()
+    log(f"[jamba whole-seq] aux {({k: round(float(v), 4) for k, v in aux.items()})}; "
+        f"prefill logits against forward's at position {s - 1}: "
+        f"max_abs_err {err:.3e} (tol atol 1e-3)")
+    torch.testing.assert_close(pre, last, atol=1e-3, rtol=0.0)
+
+    def decode():
+        tok = pre.argmax(-1)
+        for i in range(new):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+            lg = model.decode_step(params, cache, tok, pos)
+            tok = lg.argmax(-1)
+        return lg
+
+    zero()
+    lg, dec_s = _timed(decode)
+    expect("decode", (0, 0, 0, 0, n_attn * new))
+    if not torch.isfinite(lg).all():
+        raise AssertionError("jamba decode: logits not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del cache, pre, lg, last
+    fwd = profile_fn(lambda: model.forward(params, batch), "flash_attention")
+    pre_p = profile_fn(lambda: model.prefill(params, batch, s + new),
+                       "ssd_scan")
+    whole = {"forward_s": fwd_s, "prefill_s": pre_s,
+             "prefill_tok_s": b * s / pre_s,
+             "decode_step_ms": 1e3 * dec_s / new, "peak_gib": peak,
+             "forward_busy_ms": fwd[0], "prefill_busy_ms": pre_p[0],
+             "fa_ms_per_call": fwd[1] / max(fwd[4], 1),
+             "ssd_ms_per_call": pre_p[1] / max(pre_p[4], 1),
+             "fa_launches": fa_read, "ssd_launches": ssd_read}
+    log(f"[jamba whole-seq] {b} x {s}: forward {fwd_s:.3f} s wall, "
+        f"{fwd[0]:.2f} ms device busy ({fwd[2]} kernels); prefill "
+        f"{pre_s:.3f} s wall ({whole['prefill_tok_s']:.0f} tok/s), "
+        f"{pre_p[0]:.2f} ms device busy; {new} greedy decode steps "
+        f"{whole['decode_step_ms']:.2f} ms per step; peak memory "
+        f"{peak:.2f} GiB; flash_attention {whole['fa_ms_per_call']:.4f} ms "
+        f"a call ({fwd[4]} launches in the forward), ssd_scan "
+        f"{whole['ssd_ms_per_call']:.4f} ms a call ({pre_p[4]} launches in "
+        f"the prefill)")
+    for key, count, t in pre_p[3]:
+        log(f"[jamba whole-seq]   prefill {t:9.3f} ms  x{count:<5d} {key}")
+    out["whole"] = whole
+    del model, params, tokens, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase2i_moe_models():
+    """kimi-k2-1t-a32b cut to 1 layer (384 experts top-8 with a shared
+    expert, d_model 7168, 64 q-heads, vocab 163840: 38.9 GB in bf16) and
+    llama4-maverick-400b-a17b cut to 2 layers (one dense and one MoE
+    FFN of 128 experts top-1 with a shared expert, d_model 5120, vocab
+    202048: 37.1 GB), full width, bf16, seeded weights, one after the
+    other (each freed before the next): phase 2's traffic (batch 8, 8 x
+    256-token prompts x 64 new tokens, max_seq 1024) in prefill chunks
+    of 256 with dense KV; ``flash_decode`` exactly ``n_layers`` launches
+    a decode step, then case (g).  Returns each model's ``flash_decode``
+    launches."""
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    out = {}
+    for arch, layers in (("kimi-k2-1t-a32b", 1),
+                         ("llama4-maverick-400b-a17b", 2)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        params, init_s = _timed(lambda: build_model(cfg).init(
+            torch.Generator(device="cuda").manual_seed(0), "cuda"))
+        log(f"[{arch}] cut to {layers} layer(s), {cfg.moe_num_experts} "
+            f"experts top-{cfg.moe_top_k}, shared expert "
+            f"{cfg.moe_shared_expert}: params "
+            f"{nbytes(*flatten(params).values()) / 2**30:.3f} GiB "
+            f"({cfg.param_count() / 1e9:.1f}B at full depth), seeded init "
+            f"{init_s:.1f} s")
+        rng = np.random.default_rng(24)
+        prompts = [rng.integers(0, cfg.vocab_size, 256).tolist()
+                   for _ in range(8)]
+        out[arch] = _serve_dense(cfg, params, prompts, f"engine {arch}",
+                                 1024, 256)["launches"]
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase2j_robustness(cfg, prompts):
+    """Serving robustness on the card, gptneox-1b at full width, bf16:
+    8 requests x 48 new tokens served once clean; then again with, after
+    the admission and a first 16-step block, a ``logits_nan`` fault armed
+    on request 0 (two tokens later), request 1 cancelled, and the next
+    16-step block run, all three under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no implicit host
+    synchronisation); request 0 ends ``faulted`` with the clean run's
+    first 19 tokens, request 1 ``shed`` with its first 17, the other six
+    ``ok`` with the clean streams bit for bit, the accounting balanced
+    and the watchdog clean.  Then the injector's cost a decode step:
+    wall ms, device busy ms and kernels with and without a fault armed
+    (far past the stream).  Then a ``poisson_trace`` (32 arrivals at
+    400 / s, prompts of 64 to 256 tokens, 16 or 32 new) replayed under
+    the virtual clock (2 ms a decode step) with a queue of 4 that
+    rejects: requests shed, the accounting exact, a second replay's
+    report identical."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import (
+        AdmissionConfig, ServeEngine, poisson_trace, replay)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    eng = ServeEngine(model, params, batch=8, max_seq=1024, decode_block=16,
+                      prefill_chunk=256, device="cuda")
+    for p in prompts:
+        eng.submit(p, max_new_tokens=48)
+    want = [r.tokens for r in eng.run()]
+    eng.reset()
+    ids = [eng.submit(p, max_new_tokens=48) for p in prompts]
+    eng.decode_loop(16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.inject_fault(ids[0], "logits_nan", delay=2)
+        eng.cancel(ids[1])
+        toks, emits = eng._decode_block(16)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.decode_steps += 16
+    eng._harvest(toks, emits)
+    res = {r.request_id: r for r in eng.run()}
+    got = [(res[i].status, res[i].tokens) for i in ids]
+    expected = ([("faulted", want[0][:19]), ("shed", want[1][:17])]
+                + [("ok", t) for t in want[2:]])
+    if got != expected:
+        bad = [i for i, (g, w) in enumerate(zip(got, expected)) if g != w]
+        raise AssertionError(f"robustness: requests {bad} differ from the "
+                             f"clean run: {[(got[i][0], len(got[i][1])) for i in bad]}")
+    acc, watch = eng.accounting(), eng.watchdog_report()
+    if not (acc["balanced"] and acc["faulted"] == 1 and acc["shed"] == 1
+            and acc["ok"] == 6 and watch["ok"]):
+        raise AssertionError(f"robustness: accounting {acc}, watchdog "
+                             f"{watch}")
+    log("[robust] gptneox-1b full width: logits_nan armed and a cancel "
+        "inside a run, under set_sync_debug_mode('error') with the next "
+        "16-step block: no synchronisation; request 0 faulted after 19 "
+        "tokens, request 1 shed after 17, the 6 survivors bit-identical "
+        f"to the clean run; accounting {acc}; watchdog ok")
+
+    # what the logits-fault injector costs a decode step: it runs only
+    # while a slot is armed, so a fault armed far past the stream turns
+    # it on; off / on / off / on in one process, a 16-step block timed
+    # on the wall clock and the next one profiled
+    cost = {False: [], True: []}
+    for armed in (False, True, False, True):
+        eng.reset()
+        ids = [eng.submit(p, max_new_tokens=64) for p in prompts]
+        eng.decode_loop(16)                    # admission + first block
+        if armed:
+            eng.inject_fault(ids[0], "logits_nan", delay=10_000)
+        _, wall = _timed(lambda: eng.decode_loop(16))
+        busy, _, n_kern, _, _ = profile_fn(lambda: eng.decode_loop(16),
+                                           "flash_decode")
+        cost[armed].append((1e3 * wall / 16, busy / 16, n_kern / 16))
+    injector = {k: tuple(statistics.mean(c[i] for c in v) for i in range(3))
+                for k, v in cost.items()}
+    log(f"[robust] fault injector, a decode step (mean of 2 blocks each): "
+        f"disarmed {injector[False][0]:.2f} ms wall, "
+        f"{injector[False][1]:.3f} ms device busy, "
+        f"{injector[False][2]:.1f} kernels; armed "
+        f"{injector[True][0]:.2f} ms wall, {injector[True][1]:.3f} ms "
+        f"device busy, {injector[True][2]:.1f} kernels; per block "
+        f"{cost}")
+
+    sc = poisson_trace(n=32, rate=400.0, vocab_size=cfg.vocab_size,
+                       seed=23, prompt_lens=(64, 128, 256),
+                       output_lens=(16, 32))
+    adm = AdmissionConfig(queue_limit=4, policy="reject")
+    rep, wall = _timed(lambda: replay(eng, sc, k=16, admission=adm,
+                                      step_cost_s=2e-3))
+    again = replay(eng, sc, k=16, admission=adm, step_cost_s=2e-3)
+    shed = rep.by_status.get("shed", 0)
+    if not (rep.accounting_ok and rep.submitted == 32 and shed > 0
+            and rep.by_status.get("ok", 0) > 0 and again == rep):
+        raise AssertionError(f"replay: {rep} / again {again}")
+    log(f"[robust] replay {rep.scenario} under the virtual clock (2 ms a "
+        f"step), queue 4, reject: {rep.submitted} submitted, by status "
+        f"{rep.by_status}, goodput {rep.goodput_tok_s:.1f} tok/s virtual, "
+        f"TTFT p50/p99 {rep.ttft_p50:.6f}/{rep.ttft_p99:.6f} s virtual; "
+        f"accounting exact, a second replay identical; {wall:.2f} s wall")
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"replay": rep.row(), "replay_wall_s": wall,
+            "injector": injector}
 
 
 class _Recording:
@@ -2295,6 +2675,51 @@ def phase3e_dense_family_parity():
         del model3, params3
 
 
+def phase3f_moe_parity():
+    """jamba-v0.1-52b, kimi-k2-1t-a32b and llama4-maverick-400b-a17b
+    reduced (``ArchConfig.reduced()``, fp32), TF32 off, at capacity
+    factors 8.0 and 1.25, on the card and on the CPU: 2 x 40-token
+    prompts in prefill chunks of 16 (the padded third chunk takes expert
+    capacity) x 16 new tokens, greedy and sampled (temperature 0.8,
+    top_k 8, seed 3).  Streams identical, admission logits within atol
+    1e-4, ``flash_decode`` once per attention layer per decode step on
+    the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(25)
+    for arch in ("jamba-v0.1-52b", "kimi-k2-1t-a32b",
+                 "llama4-maverick-400b-a17b"):
+        for cf in (8.0, 1.25):
+            cfg3 = dataclasses.replace(get_config(arch).reduced(),
+                                       moe_capacity_factor=cf)
+            model3 = build_model(cfg3)
+            params3 = model3.init(torch.Generator().manual_seed(0), "cpu")
+            prompts3 = [rng.integers(0, cfg3.vocab_size, 40).tolist()
+                        for _ in range(2)]
+            n_attn = cfg3.n_periods * sum(
+                b.mixer == "attn" for b in cfg3.block_pattern())
+            for kw in ({}, dict(temperature=0.8, top_k=8, seed=3)):
+                label = (f"parity {arch} reduced fp32, cf {cf}, "
+                         f"{'sampled' if kw else 'greedy'}")
+                before = flash_decode.launches
+                runs = _serve_both(model3, params3, prompts3, max_seq=64,
+                                   prefill_chunk=16, **kw)
+                launched = flash_decode.launches - before
+                steps = len(runs["cuda"][2])
+                if launched != n_attn * steps or not steps:
+                    raise AssertionError(f"{label}: flash_decode launched "
+                                         f"{launched} times in {steps} "
+                                         f"steps")
+                _check_parity(label, runs)
+                for a, c in zip(runs["cuda"][1], runs["cpu"][1]):
+                    torch.testing.assert_close(a, c, atol=1e-4, rtol=0.0)
+            del model3, params3
+    log("[parity moe] every admission logit within atol 1e-4")
+
+
 def phase4_characterize():
     """``repro_torch.launch.characterize`` at the reference example's
     sizes, the counters set to 0 just before and read just after; then a
@@ -2421,6 +2846,30 @@ def main() -> int:
     stamp("2f")
     phase2g_dense_family(dense)
     stamp("2g")
+    jamba = phase2h_jamba(hbm, peak_bf16)
+    stamp("2h")
+    moe_models = phase2i_moe_models()
+    stamp("2i")
+    phase2j_robustness(cfg, prompts)
+    stamp("2j")
+    for e in fd_entries:
+        e["paths"] = {"2 gptneox-1b serving": e["launches"],
+                      "2h jamba serving": jamba["dense"]["launches"],
+                      **{f"2i {arch} serving": n
+                         for arch, n in moe_models.items()}}
+    for e in fdq_entries:
+        e["paths"] = {"2b gptneox-1b serving": e["launches"],
+                      "2h jamba serving": jamba["float8_e4m3fn"]["launches"]}
+    for e in ssd_entries:
+        e["paths"] = {"2d mamba2 serving": e["launches"],
+                      "2h jamba serving": jamba["dense"]["also_launches"][
+                          "ssd_scan"],
+                      "2h jamba whole sequence": jamba["whole"][
+                          "ssd_launches"]}
+    for e in fa_entries:
+        e["paths"] = {"2e gptneox-1b whole sequence": e["launches"],
+                      "2h jamba whole sequence": jamba["whole"][
+                          "fa_launches"]}
 
     # ---- 3: card vs CPU, fp32 ------------------------------------------ #
     model3, params3, prompts3 = phase3_parity(cfg)
@@ -2428,7 +2877,8 @@ def main() -> int:
     phase3c_mamba2_parity()
     phase3d_whole_sequence_parity()
     phase3e_dense_family_parity()
-    stamp("3-3e")
+    phase3f_moe_parity()
+    stamp("3-3f")
 
     # ---- 4: the probe suite -------------------------------------------- #
     counts = phase4_characterize()

@@ -1,7 +1,10 @@
 """Model assembly: parameter tree, the whole-sequence forward (scoring)
 and whole-prompt prefill, pooled cache, chunked prefill and the decode
-step (counterpart of ``repro.models.transformer``, attention mixer +
-dense FFN, and the SSM mixer with no FFN: mamba2).
+step (counterpart of ``repro.models.transformer``, for decoder-only
+models: an attention or SSM mixer, then a dense FFN, a MoE FFN
+(``models.moe``) or, after an SSM mixer, none.  That covers the dense
+decoders, mamba2, the hybrid jamba and the MoE decoders kimi-k2 and
+llama4).
 
 The reference scans over the period axis with ``lax.scan``; here a Python
 loop walks the layers, and each layer reads its slice ``leaf[l]`` of the
@@ -21,6 +24,12 @@ self-attention over a whole sequence (:func:`lm_forward`,
 CUDA ``kernels.flash_attention``, where the reference calls the XLA
 ``attention()``; its plain version is that dispatch, with the config's
 ``attn_chunk``.
+
+A MoE FFN routes the tokens it is given within subgroups of them: the
+whole sequence, the padded prefill chunk (its pad rows take expert
+capacity, as in the reference), or each row alone in a decode step.  The
+whole-sequence paths sum its aux losses over the layers, as the
+reference's ``_acc_aux`` does.
 
 An SSM layer (``models.ssm``) keeps its conv carries and fp32 state in
 the cache entry's ``ssm`` part.  Its whole-sequence block and its
@@ -46,6 +55,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_decode_quant import flash_decode_quant
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import slotstate
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
@@ -53,15 +63,16 @@ from repro_torch.models.layers import (
 
 
 def _check_block(cfg: ArchConfig, blk: BlockSpec) -> None:
-    """The port has the attention decoder with dense FFNs and the SSM
-    block with no FFN (mamba2); the hybrid waits for the MoE slice."""
+    """The port has decoder blocks: an attention or SSM mixer, then a
+    dense or MoE FFN, or (SSM only) none."""
     if blk.mixer not in ("attn", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: mixer {blk.mixer!r} is not ported")
-    if blk.ffn != ("dense" if blk.mixer == "attn" else "none"):
+    ffns = ("dense", "moe") + (("none",) if blk.mixer == "ssm" else ())
+    if blk.ffn not in ffns:
         raise NotImplementedError(
             f"{cfg.name}: ffn {blk.ffn!r} after a {blk.mixer!r} mixer "
-            f"arrives with the MoE / hybrid slice")
+            f"is not ported")
     if blk.cross_attn or cfg.is_encoder_decoder or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and VLM models arrive with "
@@ -69,6 +80,11 @@ def _check_block(cfg: ArchConfig, blk: BlockSpec) -> None:
 
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_dropped")
+
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX_KEYS}
 
 
 def _at(tree: dict, layer: int) -> dict:
@@ -85,14 +101,19 @@ def init_block(cfg: ArchConfig, blk: BlockSpec, dtype,
                generator: torch.Generator, device, lead=()) -> dict:
     _check_block(cfg, blk)
     ones = torch.ones((*lead, cfg.d_model), dtype=dtype, device=device)
+    p = {"ln_mix": ones}
     if blk.mixer == "ssm":
-        return {"ln_mix": ones,
-                "ssm": ssm.init_ssm(cfg, dtype, generator, device, lead)}
-    return {"ln_mix": ones,
-            "attn": attn.init_attention(cfg, dtype, generator, device, lead),
-            "ln_ffn": ones.clone(),
-            "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_variant, dtype,
-                            generator, device, lead)}
+        p["ssm"] = ssm.init_ssm(cfg, dtype, generator, device, lead)
+    else:
+        p["attn"] = attn.init_attention(cfg, dtype, generator, device, lead)
+    if blk.ffn != "none":
+        p["ln_ffn"] = ones.clone()
+    if blk.ffn == "dense":
+        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_variant, dtype,
+                            generator, device, lead)
+    elif blk.ffn == "moe":
+        p["moe"] = moe.init_moe(cfg, dtype, generator, device, lead)
+    return p
 
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
@@ -143,17 +164,29 @@ def _self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig,
     return attn.project_out(p, o), (k, v)
 
 
+def apply_ffn(p: dict, blk: BlockSpec, cfg: ArchConfig, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, dict]:
+    """The block's FFN and its residual: (x, aux).  aux holds the MoE
+    losses of a MoE FFN and is {} otherwise."""
+    if blk.ffn == "none":
+        return x, {}
+    h = rms_norm(p["ln_ffn"], x, cfg.norm_eps)
+    if blk.ffn == "moe":
+        y, aux = moe.apply_moe(p["moe"], h, cfg)
+        return x + y, aux
+    return x + apply_mlp(p["mlp"], h, cfg.mlp_variant), {}
+
+
 def apply_block(p: dict, blk: BlockSpec, cfg: ArchConfig, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, dict]:
-    """One block over the whole sequence: (x, aux).  The ported blocks
-    (attention + dense FFN, SSM) have no aux losses: aux is {}."""
+    """One block over the whole sequence: (x, aux)."""
     _check_block(cfg, blk)
     h = rms_norm(p["ln_mix"], x, cfg.norm_eps)
     if blk.mixer == "ssm":
-        return x + ssm.ssm_forward(p["ssm"], h, cfg), {}
-    x = x + _self_attention(p["attn"], h, cfg, blk)[0]
-    h = rms_norm(p["ln_ffn"], x, cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg.mlp_variant), {}
+        x = x + ssm.ssm_forward(p["ssm"], h, cfg)
+    else:
+        x = x + _self_attention(p["attn"], h, cfg, blk)[0]
+    return apply_ffn(p, blk, cfg, x)
 
 
 def trunk_inputs(params: dict, cfg: ArchConfig,
@@ -174,15 +207,18 @@ def lm_features(params: dict, batch: Dict[str, torch.Tensor],
                 cfg: ArchConfig) -> Tuple[torch.Tensor, dict]:
     """Trunk output after the final norm, before unembedding: (features
     (b, s, d_model) at the compute dtype, aux).  aux holds the
-    reference's keys at zero (no MoE layer is ported)."""
+    reference's keys: each MoE loss summed over the MoE layers (0 in a
+    model without one)."""
     x, _ = trunk_inputs(params, cfg, batch)
+    aux = _zero_aux(x.device)
     for layer in range(cfg.n_periods):
         for i, blk in enumerate(cfg.block_pattern()):
-            x, _ = apply_block(_at(params["layers"][f"pos{i}"], layer), blk,
+            x, a = apply_block(_at(params["layers"][f"pos{i}"], layer), blk,
                                cfg, x)
+            for name, v in a.items():
+                aux[name] = aux[name] + v
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return x, {k: torch.zeros((), dtype=torch.float32, device=x.device)
-               for k in AUX_KEYS}
+    return x, aux
 
 
 def lm_forward(params: dict, batch: Dict[str, torch.Tensor],
@@ -215,13 +251,12 @@ def lm_prefill(params: dict, batch: Dict[str, torch.Tensor],
                 x = x + out
                 for name, t in state.items():
                     entry["ssm"][name].copy_(t)
-                continue
-            out, (k, v) = _self_attention(p["attn"], h, cfg, blk)
-            x = x + out
-            attn.cache_write_prefill(entry["kv"], k, v,
-                                     kv_format=cfg.kv_format_for(i))
-            h = rms_norm(p["ln_ffn"], x, cfg.norm_eps)
-            x = x + apply_mlp(p["mlp"], h, cfg.mlp_variant)
+            else:
+                out, (k, v) = _self_attention(p["attn"], h, cfg, blk)
+                x = x + out
+                attn.cache_write_prefill(entry["kv"], k, v,
+                                         kv_format=cfg.kv_format_for(i))
+            x, _ = apply_ffn(p, blk, cfg, x)
     return _final_logits(params, x[:, -1:], cfg), cache
 
 
@@ -328,6 +363,7 @@ def lm_decode_step(params: dict, cache: dict, token: torch.Tensor,
             if blk.mixer == "ssm":
                 x = x + ssm.ssm_decode(p["ssm"], h, entry["ssm"], cfg,
                                        active=active)
+                x, _ = apply_ffn(p, blk, cfg, x)
                 continue
             kv = entry["kv"]
             q = attn.project_q(p["attn"], h)
@@ -346,8 +382,7 @@ def lm_decode_step(params: dict, cache: dict, token: torch.Tensor,
                                  window=blk.window,
                                  softcap=cfg.attn_logit_softcap)
             x = x + attn.project_out(p["attn"], o)
-            h = rms_norm(p["ln_ffn"], x, cfg.norm_eps)
-            x = x + apply_mlp(p["mlp"], h, cfg.mlp_variant)
+            x, _ = apply_ffn(p, blk, cfg, x)
     return _final_logits(params, x, cfg)
 
 
@@ -381,6 +416,7 @@ def lm_prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
                 x = x + ssm.ssm_prefill_chunk(
                     p["ssm"], h, slotstate.take_row(entry["ssm"], slot),
                     cfg, valid, valid_len)
+                x, _ = apply_ffn(p, blk, cfg, x)
                 continue
             kv_row = slotstate.take_row(entry["kv"], slot)
             q = attn.project_q(p["attn"], h)
@@ -399,6 +435,5 @@ def lm_prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
             x = x + attn.project_out(p["attn"], o)
             attn.cache_write_chunk(kv_row, k, v, positions, valid,
                                    kv_format=kv_fmt)
-            h = rms_norm(p["ln_ffn"], x, cfg.norm_eps)
-            x = x + apply_mlp(p["mlp"], h, cfg.mlp_variant)
+            x, _ = apply_ffn(p, blk, cfg, x)
     return _final_logits(params, x[:, valid_len - 1:valid_len], cfg)

@@ -42,23 +42,38 @@ from one dense ``compute_dtype`` copy of it, as the reference's engine
 does (``qmatmul`` cannot read this store: it is blocked along each
 leaf's last axis, not along k).
 
+Robustness, as in the reference.  The queue is an
+:class:`~repro_torch.serve.admission.AdmissionQueue` (``admission=``: a
+bounded queue with the ``reject`` / ``shed_oldest`` / ``block``
+policies, ``fifo`` / ``spf`` scheduling, deadlines on the engine's
+injectable clock); :meth:`ServeEngine.cancel` ends a queued request
+without touching the device and an in-flight one with one slot-state
+write; :meth:`ServeEngine.inject_fault` arms a logits fault as a write
+to the slot's device state (``fault_pos``, ``fault_kind``: the fused
+block overwrites that slot's logits when its sampling position comes,
+with no host branch) or poisons the slot's cache in place
+(``serve.faults``).  Every submitted request ends in exactly one of
+:data:`STATUSES`: :meth:`ServeEngine.accounting` checks the identity,
+:meth:`ServeEngine.watchdog_report` reconciles host and device slot
+state.  ``serve.traffic`` replays seeded arrival traces through it.
+
 Not ported yet (they raise ``NotImplementedError``): mesh serving,
-admission policies, speculation, fault injection and cancel, and the
-model families other than the attention decoder and the SSM (hybrid,
-MoE, enc-dec, VLM), which the model refuses.
+speculation, and the enc-dec and VLM families, which the model refuses.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import time
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.compat import resolve_device
 from repro_torch.models.model import Model, build_model
+from repro_torch.serve import faults as fault_lib
+from repro_torch.serve.admission import (
+    AdmissionConfig, AdmissionQueue, QueueFull)
 from repro_torch.serve.quant import dequantize_tree, quantize_tree
 from repro_torch.serve.prng import prng_key
 from repro_torch.serve.sampler import sample_tokens
@@ -66,8 +81,8 @@ from repro_torch.serve.sampler import sample_tokens
 # terminal request states; every submitted request ends in exactly one
 STATUSES = ("ok",                  # full generation delivered
             "truncated",           # run() step budget hit mid-generation
-            "shed",                # (admission policies: later slice)
-            "deadline_exceeded",   # (deadlines: later slice)
+            "shed",                # dropped by admission policy / cancel
+            "deadline_exceeded",   # deadline passed (queued or in-flight)
             "faulted")             # in-loop sentinel caught non-finite
                                    # logits; slot recovered via clear_slot
 
@@ -83,9 +98,9 @@ class GenerationResult:
     prompt: List[int]
     tokens: List[int]
     status: str = "ok"
-    submit_t: Optional[float] = None       # time.monotonic() stamps
-    first_token_t: Optional[float] = None
-    finish_t: Optional[float] = None
+    submit_t: Optional[float] = None       # engine-clock stamps (None
+    first_token_t: Optional[float] = None  # where not applicable: shed
+    finish_t: Optional[float] = None       # before prefill)
 
     @property
     def truncated(self) -> bool:
@@ -103,12 +118,20 @@ class _Request:
     request_id: int
     prompt: List[int]
     max_new_tokens: int
-    submit_t: float = 0.0
+    submit_t: float = 0.0                  # engine-clock stamps
+    deadline_s: Optional[float] = None     # absolute (engine clock)
     first_token_t: Optional[float] = None
 
     @property
     def trunk_len(self) -> int:
         return len(self.prompt)
+
+
+def _put(t: torch.Tensor, slot: int, value) -> None:
+    """``t[slot] = value`` for a host scalar, as a fill of the row's view:
+    an indexed assignment of a host value copies it to the card, which
+    synchronizes; a fill takes the value as a kernel argument."""
+    t[slot].fill_(value)
 
 
 def _tree_to(tree: dict, device: torch.device) -> dict:
@@ -128,9 +151,10 @@ class ServeEngine:
                  device=None, *, kv_format: Any = None,
                  weight_format: Optional[str] = None, packed: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 mesh: Any = None, admission: Any = None, spec: Any = None):
-        for name, value in (("mesh", mesh), ("admission", admission),
-                            ("spec", spec)):
+                 admission: Optional[AdmissionConfig] = None,
+                 clock: Optional[Callable[[], float]] = None,
+                 mesh: Any = None, spec: Any = None):
+        for name, value in (("mesh", mesh), ("spec", spec)):
             if value is not None:
                 raise NotImplementedError(
                     f"ServeEngine({name}=...) arrives with a later slice "
@@ -166,11 +190,16 @@ class ServeEngine:
             1, min(int(prefill_chunk), model.min_cache_capacity(max_seq)))
         self.cache = model.init_cache(batch, max_seq, self.device)
         self.kv_stats = model.kv_cache_stats(self.cache)
+        self.queue = AdmissionQueue(admission)
+        # injectable clock (deadlines, TTFT): a virtual clock makes
+        # deadline tests and trace replays deterministic
+        self._clock: Callable[[], float] = clock or time.monotonic
         self.reset()
 
     def reset(self) -> None:
         """Clear all serving state (cache, slots, queue, results); the
-        parameters and the cache's tensors stay (reset in place)."""
+        parameters and the cache's tensors stay (reset in place).  The
+        admission config survives; :meth:`set_admission` swaps it."""
         for entry in self.cache.values():
             for tree in entry.values():      # ring KV or SSM carries/state
                 for name, leaf in tree.items():
@@ -181,11 +210,44 @@ class ServeEngine:
         self.state = self._init_state()
         self.slot_req: List[Optional[_Request]] = [None] * self.batch
         self.out_tokens: List[List[int]] = [[] for _ in range(self.batch)]
-        self.queue: Deque[_Request] = collections.deque()
+        self.queue = AdmissionQueue(self.queue.cfg)
         self.results: List[GenerationResult] = []
         self._next_id = 0
+        self._submitted = 0
+        self._deadlines_live = False
+        # slots with a logits fault armed (host-known: inject_fault is
+        # host-called); the fused block runs the injector only while
+        # this is non-empty
+        self._armed: set = set()
         self.decode_steps = 0          # fused decode steps run
         self.dispatches = 0            # decode blocks run (host reads)
+        # watchdog: per-slot (token count, dispatch index) at the last
+        # block that advanced the slot
+        self._slot_progress: List[Tuple[int, int]] = [(0, 0)] * self.batch
+
+    # -- clock / policy injection ---------------------------------------- #
+    def _now(self) -> float:
+        return self._clock()
+
+    def set_clock(self, clock: Callable[[], float]) -> None:
+        """Swap the engine clock (deadlines, TTFT stamps)."""
+        self._clock = clock
+
+    def set_admission(self, cfg: Optional[AdmissionConfig]) -> None:
+        """Swap the admission policy.  Queued requests are re-offered
+        under the new policy (overflow is shed per that policy); device
+        state is untouched."""
+        pending = self.queue.drain()
+        self.queue = AdmissionQueue(cfg)
+        for req in pending:
+            try:
+                _, shed = self.queue.offer(req)
+            except QueueFull:          # block policy: nobody to retry a
+                shed = [req]           # config swap, so overflow sheds
+            for r in shed:
+                self._finish_unadmitted(r, "shed")
+        if cfg is not None and cfg.deadline_ms is not None:
+            self._deadlines_live = True
 
     # read-only, as in the reference (there they are traced into the
     # compiled loop): build a new engine to change them
@@ -199,12 +261,17 @@ class ServeEngine:
 
     # -- device state --------------------------------------------------- #
     def _init_state(self) -> dict:
+        """The slot state on the device.  ``fault_pos`` / ``fault_kind``
+        arm the in-loop logits fault (disarmed at -1 / 0)."""
         b, dev = self.batch, self.device
         return {"pos": torch.zeros(b, dtype=torch.int32, device=dev),
                 "remaining": torch.zeros(b, dtype=torch.int32, device=dev),
                 "last_token": torch.zeros(b, dtype=torch.int32, device=dev),
                 "active": torch.zeros(b, dtype=torch.bool, device=dev),
-                "seed": torch.zeros(b, dtype=torch.int32, device=dev)}
+                "seed": torch.zeros(b, dtype=torch.int32, device=dev),
+                "fault_pos": torch.full((b,), -1, dtype=torch.int32,
+                                        device=dev),
+                "fault_kind": torch.zeros(b, dtype=torch.int32, device=dev)}
 
     def _sample(self, logits: torch.Tensor, seed: torch.Tensor,
                 pos: torch.Tensor) -> torch.Tensor:
@@ -214,17 +281,33 @@ class ServeEngine:
                              self.top_k, slot_seed=seed, pos=pos)
 
     # -- request management -------------------------------------------- #
-    def submit(self, prompt: List[int], max_new_tokens: int = 16) -> int:
-        """Enqueue a request (FIFO).  The prompt must leave room for at
-        least one generated token, and ``max_new_tokens`` must be >= 1:
-        admission always samples one token from the prefill logits."""
+    def submit(self, prompt: List[int], max_new_tokens: int = 16,
+               deadline_ms: Optional[float] = None) -> int:
+        """Enqueue a request through the admission policy.  The prompt
+        must leave room for at least one generated token, and
+        ``max_new_tokens`` must be >= 1: admission always samples one
+        token from the prefill logits.
+
+        ``deadline_ms``: a deadline relative to now on the engine clock
+        (default: the admission config's).  An expired queued request
+        finishes ``deadline_exceeded`` without spending prefill; an
+        expired in-flight one is cancelled with its partial tokens.
+
+        Under a bounded queue, ``reject`` finishes the new request as
+        ``shed``, ``shed_oldest`` sheds the oldest queued one, and
+        ``block`` raises :class:`QueueFull` and consumes no id."""
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1 (got {max_new_tokens}): "
                 f"admission samples the first token from the prefill "
                 f"logits, so a 0-token generation does not exist")
+        now = self._now()
+        if deadline_ms is None:
+            deadline_ms = self.queue.cfg.deadline_ms
         req = _Request(self._next_id, list(prompt), max_new_tokens,
-                       submit_t=time.monotonic())
+                       submit_t=now,
+                       deadline_s=(None if deadline_ms is None
+                                   else now + deadline_ms / 1e3))
         if req.trunk_len >= self.max_seq:
             raise ValueError(
                 f"prompt length {req.trunk_len} >= max_seq {self.max_seq}: "
@@ -232,18 +315,82 @@ class ServeEngine:
                 f"stream; truncate the prompt or raise max_seq")
         if req.trunk_len < 1:
             raise ValueError("empty prompt")
-        self.queue.append(req)
+        # offer before consuming the id: a block-policy QueueFull leaves
+        # the engine as it was
+        _, shed = self.queue.offer(req)
         self._next_id += 1
+        self._submitted += 1
+        if req.deadline_s is not None:
+            self._deadlines_live = True
+        for r in shed:
+            self._finish_unadmitted(r, "shed")
         return req.request_id
 
+    # -- cancellation / fault injection ---------------------------------- #
+    def _slot_of(self, request_id: int) -> Tuple[int, _Request]:
+        for slot, req in enumerate(self.slot_req):
+            if req is not None and req.request_id == request_id:
+                return slot, req
+        raise KeyError(f"request {request_id} is not in flight")
+
+    def _cancel_update(self, slot: int) -> None:
+        """Deactivate the slot, so the next fused block neither samples
+        nor writes for it, and disarm its fault: fills of the slot's
+        rows on the device (:func:`_put`), no host read."""
+        st = self.state
+        for name, value in (("remaining", 0), ("active", False),
+                            ("fault_pos", -1), ("fault_kind", 0)):
+            _put(st[name], slot, value)
+
     def cancel(self, request_id: int, status: str = "shed") -> bool:
-        raise NotImplementedError("cancel arrives with the serving-"
-                                  "robustness slice")
+        """Cancel a request wherever it is.  Queued: removed without
+        touching the device.  In flight: the slot is deactivated
+        (:meth:`_cancel_update`) and the partial tokens are delivered
+        under ``status``.  Returns False when the id is unknown or
+        already finished."""
+        if status not in STATUSES:
+            raise ValueError(f"status {status!r} not in {STATUSES}")
+        req = self.queue.remove(request_id)
+        if req is not None:
+            self._finish_unadmitted(req, status)
+            return True
+        try:
+            slot, _ = self._slot_of(request_id)
+        except KeyError:
+            return False
+        self._cancel_update(slot)
+        self._finish(slot, status=status)
+        return True
 
     def inject_fault(self, request_id: int, kind: str = "logits_nan",
-                     **kwargs) -> None:
-        raise NotImplementedError("fault injection arrives with the "
-                                  "serving-robustness slice")
+                     delay: int = 0, leaf: str = "k_s",
+                     xor: int = 0xFF) -> None:
+        """Arm a fault against an in-flight request (see
+        ``serve.faults`` for the kinds and which the sentinel detects).
+
+        ``logits_nan`` / ``logits_inf`` arm the in-loop injector: the
+        fault fires when the slot samples its ``delay``-th next token (0
+        = the first token of the next block).  The cache kinds
+        (``e8m0_overflow``, ``kv_bitflip`` over ``leaf`` with ``xor``,
+        ``state_inf``) poison the slot's cache in place, now."""
+        slot, req = self._slot_of(request_id)
+        if kind in fault_lib.LOGITS_FAULTS:
+            if delay < 0:
+                raise ValueError("delay must be >= 0")
+            _put(self.state["fault_pos"], slot,
+                 req.trunk_len + len(self.out_tokens[slot]) + delay)
+            _put(self.state["fault_kind"], slot,
+                 fault_lib.LOGITS_FAULTS[kind])
+            self._armed.add(slot)
+            return
+        if kind not in fault_lib.CACHE_POISONERS:
+            raise ValueError(
+                f"unknown fault kind {kind!r}; choose from "
+                f"{fault_lib.FAULT_KINDS}")
+        if kind == "kv_bitflip":
+            fault_lib.flip_kv_bytes(self.cache, slot, leaf=leaf, xor=xor)
+        else:
+            fault_lib.CACHE_POISONERS[kind](self.cache, slot)
 
     def _admit_update(self, logits: torch.Tensor, slot: int, plen: int,
                       max_new: int, rid: int) -> torch.Tensor:
@@ -255,11 +402,12 @@ class ServeEngine:
                                  device=self.device)
         tok = self._sample(logits, seed, pos)[0]
         st = self.state
-        st["seed"][slot] = rid
-        st["pos"][slot] = plen
-        st["remaining"][slot] = max_new - 1
+        for name, value in (("seed", rid), ("pos", plen),
+                            ("remaining", max_new - 1),
+                            ("active", max_new > 1), ("fault_pos", -1),
+                            ("fault_kind", 0)):
+            _put(st[name], slot, value)
         st["last_token"][slot] = tok
-        st["active"][slot] = max_new > 1
         return tok
 
     def _prefill_into_slot(self, slot: int, req: _Request) -> torch.Tensor:
@@ -281,26 +429,37 @@ class ServeEngine:
         for slot in range(self.batch):
             if self.slot_req[slot] is not None or not self.queue:
                 continue
-            req = self.queue.popleft()
+            req, expired = self.queue.take(self._now())
+            for e in expired:
+                # deadline passed while queued: no prefill is spent
+                self._finish_unadmitted(e, "deadline_exceeded")
+            if req is None:
+                continue
             logits = self._prefill_into_slot(slot, req)
             tok = self._admit_update(logits, slot, req.trunk_len,
                                      req.max_new_tokens, req.request_id)
             self.slot_req[slot] = req
             self.out_tokens[slot] = [int(tok)]
-            req.first_token_t = time.monotonic()
+            req.first_token_t = self._now()
+            self._slot_progress[slot] = (1, self.dispatches)
             if req.max_new_tokens <= 1:
                 self._finish(slot)
 
     # -- fused decode --------------------------------------------------- #
     def _decode_block(self, k: int):
         """K decode steps back to back, with no host read: decode ->
-        non-finite sentinel -> sample at ``pos + 1`` -> slot
-        bookkeeping, all on the device.  Returns (tokens (k, b), emit codes (k, b)) int32.
+        armed fault -> non-finite sentinel -> sample at ``pos + 1`` ->
+        slot bookkeeping, all on the device.  Returns (tokens (k, b),
+        emit codes (k, b)) int32.
 
-        A slot whose logits go non-finite emits EMIT_FAULT, keeps its
-        pos/remaining/last_token, and drops out of ``active`` in the same
-        step, so its cache writes stop and the other slots are
-        untouched."""
+        An armed logits fault (``fault_kind`` > 0) overwrites the slot's
+        logits with NaN or +inf at the step whose sampling position is
+        ``fault_pos``.  A slot whose logits go non-finite emits
+        EMIT_FAULT, keeps its pos/remaining/last_token, drops out of
+        ``active`` in the same step (so its cache writes stop and the
+        other slots are untouched) and is disarmed.  The injector runs
+        only while a slot is armed (``_armed``, cleared when the slot's
+        request finishes), so a run with no fault pays nothing for it."""
         st = self.state
         toks, emits = [], []
         for _ in range(k):
@@ -308,9 +467,16 @@ class ServeEngine:
             logits = self.model.decode_step(self.params, self.cache,
                                             st["last_token"], st["pos"],
                                             active=active)
+            nxt = st["pos"] + 1
+            if self._armed:
+                kind = st["fault_kind"]
+                hit = active & (kind > 0) & (st["fault_pos"] == nxt)
+                bad_val = torch.where(kind == fault_lib.FAULT_INF,
+                                      float("inf"), float("nan"))
+                logits = torch.where(hit[:, None], bad_val[:, None].to(
+                    logits.dtype), logits)
             bad = active & ~torch.isfinite(logits).all(dim=-1)
             ok = active & ~bad
-            nxt = st["pos"] + 1
             tok = torch.where(ok, self._sample(logits, st["seed"], nxt),
                               st["last_token"])
             new_pos = torch.where(ok, nxt, st["pos"])
@@ -320,6 +486,8 @@ class ServeEngine:
             st["remaining"].copy_(new_rem)
             st["last_token"].copy_(tok)
             st["active"].copy_(ok & ~finished)
+            if self._armed:
+                st["fault_kind"].copy_(torch.where(bad, 0, kind))
             toks.append(tok)
             emits.append(ok.to(torch.int32)
                          + EMIT_FAULT * bad.to(torch.int32))
@@ -344,8 +512,16 @@ class ServeEngine:
         self.results.append(GenerationResult(
             req.request_id, req.prompt, self.out_tokens[slot],
             status=status, submit_t=req.submit_t,
-            first_token_t=req.first_token_t, finish_t=time.monotonic()))
+            first_token_t=req.first_token_t, finish_t=self._now()))
         self.slot_req[slot] = None
+        self._armed.discard(slot)
+
+    def _finish_unadmitted(self, req: _Request, status: str) -> None:
+        """Account a request that never reached a slot (shed, cancelled
+        while queued, or expired before prefill): no tokens."""
+        self.results.append(GenerationResult(
+            req.request_id, req.prompt, [], status=status,
+            submit_t=req.submit_t, finish_t=self._now()))
 
     def _dispatch(self, k: int) -> int:
         """One fused block of K decode steps and its one host read."""
@@ -378,6 +554,82 @@ class ServeEngine:
                 self.model.clear_slot(self.cache, slot)
             elif not active_after[slot]:
                 self._finish(slot)
+            else:
+                self._slot_progress[slot] = (len(self.out_tokens[slot]),
+                                             self.dispatches)
+        if self._deadlines_live:
+            self._expire_inflight()
+
+    def _expire_inflight(self) -> None:
+        """Cancel the in-flight requests whose deadline passed: their
+        partial tokens finish as ``deadline_exceeded``."""
+        now = self._now()
+        for slot, req in enumerate(self.slot_req):
+            if (req is not None and req.deadline_s is not None
+                    and now >= req.deadline_s):
+                self._cancel_update(slot)
+                self._finish(slot, status="deadline_exceeded")
+
+    # -- accounting / watchdog ------------------------------------------- #
+    def accounting(self) -> Dict[str, int]:
+        """Request accounting.  ``balanced`` is the identity: submitted
+        = ok + truncated + shed + deadline_exceeded + faulted +
+        in_flight + queued."""
+        by_status = {s: 0 for s in STATUSES}
+        for r in self.results:
+            by_status[r.status] += 1
+        in_flight = sum(r is not None for r in self.slot_req)
+        queued = len(self.queue)
+        done = sum(by_status.values())
+        return dict(by_status, submitted=self._submitted,
+                    completed=by_status["ok"] + by_status["truncated"],
+                    in_flight=in_flight, queued=queued,
+                    balanced=(self._submitted
+                              == done + in_flight + queued))
+
+    def watchdog_report(self) -> Dict:
+        """Host / device slot reconciliation (one host read; not for a
+        timed region).  Flags device-active slots with no host request
+        (orphans), host requests on an inactive device slot (lost
+        finish), ``remaining`` < 0, ``pos`` >= max_seq, a device
+        ``remaining`` other than the host's budget, and slots active
+        for 3 blocks or more without a token (stuck)."""
+        st = self.state
+        active, pos, remaining = torch.stack(
+            [st["active"].to(torch.int32), st["pos"], st["remaining"]]
+        ).cpu().tolist()
+        findings: List[str] = []
+        for slot in range(self.batch):
+            req = self.slot_req[slot]
+            if req is None:
+                if active[slot]:
+                    findings.append(
+                        f"slot {slot}: device-active with no host "
+                        f"request (orphaned slot)")
+                continue
+            if not active[slot]:
+                findings.append(
+                    f"slot {slot}: host request {req.request_id} on an "
+                    f"inactive device slot (lost finish)")
+            if remaining[slot] < 0:
+                findings.append(f"slot {slot}: remaining="
+                                f"{remaining[slot]} < 0")
+            if pos[slot] >= self.max_seq:
+                findings.append(f"slot {slot}: pos={pos[slot]} >= max_seq "
+                                f"{self.max_seq}")
+            host_rem = req.max_new_tokens - len(self.out_tokens[slot])
+            if active[slot] and remaining[slot] != host_rem:
+                findings.append(
+                    f"slot {slot}: device remaining={remaining[slot]} != "
+                    f"host budget {host_rem}")
+            count, seen = self._slot_progress[slot]
+            if (active[slot] and self.dispatches - seen >= 3
+                    and len(self.out_tokens[slot]) == count):
+                findings.append(
+                    f"slot {slot}: stuck — no tokens emitted for "
+                    f"{self.dispatches - seen} dispatches")
+        return {"ok": not findings, "findings": findings,
+                "dispatches": self.dispatches}
 
     def decode_loop(self, k: Optional[int] = None) -> None:
         """Admit from the queue, then run K fused decode steps (K =

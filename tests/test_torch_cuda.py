@@ -1072,3 +1072,80 @@ def test_flash_attention_gptneox_prefill_card_matches_cpu(cuda):
 def _tree_to(tree, dev):
     return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------- #
+# the MoE FFN, jamba's ssd_scan shapes, robustness in the fused block
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("arch,s,over", [
+    ("kimi-k2-1t-a32b", 16, dict(moe_num_experts=16, moe_top_k=8)),
+    ("kimi-k2-1t-a32b", 1, dict(moe_num_experts=16, moe_top_k=8)),
+    ("jamba-v0.1-52b", 64, dict(moe_capacity_factor=0.5)),
+    ("llama4-maverick-400b-a17b", 48, {})])
+def test_apply_moe_card_matches_cpu(cuda, arch, s, over):
+    """``models.moe.apply_moe`` on the card against its CPU run, fp32
+    with TF32 off: y within atol 1e-5 (summation order), the aux losses
+    within 1e-6 relative above 1, as many pairs dropped; top-8 over 16 experts, jamba's top-2 with drops, llama4's
+    top-1 with a shared expert, and decode rows (s 1)."""
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    p = moe.init_moe(cfg, F32, torch.Generator().manual_seed(1), "cpu")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (3, s, cfg.d_model), np.float32))
+    want, want_aux = moe.apply_moe(p, x, cfg, subgroup=16)
+    got, aux = moe.apply_moe({k: v.cuda() if torch.is_tensor(v) else
+                              {n: w.cuda() for n, w in v.items()}
+                              for k, v in p.items()}, x.cuda(), cfg,
+                             subgroup=16)
+    pairs = 3 * s * cfg.moe_top_k          # (token, choice) pairs
+    assert round(float(aux["moe_dropped"]) * pairs) == round(
+        float(want_aux["moe_dropped"]) * pairs)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+    for k in want_aux:
+        tol = 1e-6 * max(1.0, abs(float(want_aux[k])))
+        assert abs(float(aux[k]) - float(want_aux[k])) <= tol, (
+            k, float(aux[k]), float(want_aux[k]))
+
+
+@pytest.mark.parametrize("bt,s", [(1, 256), (2, 2048)])
+def test_ssd_scan_at_jamba_shapes(cuda, bt, s):
+    """jamba-v0.1-52b's SSD at full width: 128 heads of p 64 over a
+    state of n 16, chunk 256; the serving call (one 256-token prefill
+    chunk, fp32 x, bf16 b / c, an initial state) and the whole-sequence
+    call (2 x 2048 tokens, the carry across 8 chunks)."""
+    _check_ssd(*_ssd_inputs(21 + bt, bt, s, 128, 64, 16, bc_dtype=BF16,
+                            with_state=bt == 1), chunk=256)
+
+
+def test_arming_and_cancel_make_no_sync(cuda):
+    """Arming a logits fault, poisoning a slot's SSM state, cancelling a
+    request and the fused block that follows make no implicit
+    device-to-host synchronization on a hybrid MoE model (jamba
+    reduced): both faults fire in the block (the slots end ``faulted``
+    at the harvest), the cancelled slot is out, the fourth slot's
+    stream goes on."""
+    cfg = get_config("jamba-v0.1-52b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    eng = ServeEngine(model, params, batch=4, max_seq=64, decode_block=4,
+                      prefill_chunk=8, device="cuda")
+    ids = [eng.submit(list(range(1, 11)), max_new_tokens=20),
+           eng.submit([3, 4], max_new_tokens=20),
+           eng.submit([5, 6, 7], max_new_tokens=20),
+           eng.submit([8, 9], max_new_tokens=20)]
+    eng.decode_loop(4)            # admission and a first block
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.inject_fault(ids[0], "logits_nan", delay=1)
+        eng.inject_fault(ids[3], "state_inf")
+        eng.cancel(ids[1])
+        toks, emits = eng._decode_block(4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng._harvest(toks, emits)
+    res = {r.request_id: r.status for r in eng.results}
+    assert res == {ids[0]: "faulted", ids[1]: "shed", ids[3]: "faulted"}
+    assert eng.slot_req[2] is not None and eng.accounting()["balanced"]

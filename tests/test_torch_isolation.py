@@ -5,6 +5,7 @@ triton; its entry points default to the card and refuse to continue on
 the CPU; the kernel wrappers never fall back to their plain versions."""
 
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -23,7 +24,7 @@ from repro_torch.kernels import ssd_scan as kss
 from repro_torch.models import attention as attn
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.model import build_model
-from repro_torch.serve import ServeEngine
+from repro_torch.serve import AdmissionConfig, ServeEngine, faults
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -87,6 +88,70 @@ def test_engine_defaults_to_the_card(no_card):
 def test_launcher_defaults_to_the_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--reduced"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "jamba-v0.1-52b", "--reduced"],
+    ["--arch", "kimi-k2-1t-a32b", "--reduced"],
+    ["--arch", "llama4-maverick-400b-a17b", "--reduced"],
+    ["--reduced", "--scenario", "poisson", "--queue-limit", "2"]])
+def test_new_launcher_paths_default_to_the_card(no_card, argv):
+    """The MoE / hybrid models and the traffic mode of the launcher run
+    on the card unless asked for the CPU."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(argv)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "kimi-k2-1t-a32b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_engine_defaults_to_the_card(no_card, arch):
+    """An engine of the MoE / hybrid models, with an admission policy,
+    refuses to start without a card when no device is named."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params, batch=1, max_seq=16,
+                    admission=AdmissionConfig(queue_limit=2))
+
+
+def test_robustness_and_moe_modules_are_checked():
+    """The MoE, admission, fault, traffic and synthetic-prompt modules
+    and the three configs are among the files the import check reads,
+    and the registry serves the configs."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/models/moe.py",
+            "src/repro_torch/serve/admission.py",
+            "src/repro_torch/serve/faults.py",
+            "src/repro_torch/serve/traffic.py",
+            "src/repro_torch/data/synthetic.py",
+            "src/repro_torch/configs/jamba_v0p1_52b.py",
+            "src/repro_torch/configs/kimi_k2_1t.py",
+            "src/repro_torch/configs/llama4_maverick_400b.py"} <= names
+    for arch in ("jamba-v0.1-52b", "kimi-k2-1t-a32b",
+                 "llama4-maverick-400b-a17b"):
+        assert get_config(arch).name == arch
+
+
+def test_faults_write_in_place_with_no_host_fallback():
+    """The cache poisoners write the slot's leaves where they live (here
+    the meta device, which holds no data to copy to the host): no
+    tensor leaves its device, and the source reads nothing back."""
+    src = (ROOT / "src/repro_torch/serve/faults.py").read_text()
+    for word in (".cpu(", ".numpy(", ".item(", ".tolist(", '"cpu"'):
+        assert word not in src, word
+    cfg = get_config("jamba-v0.1-52b").reduced()
+    model = build_model(dataclasses.replace(cfg, kv_format="float8_e4m3fn"))
+    cache = model.init_cache(2, 16, "meta")
+    leaves = {id(t) for e in cache.values() for tree in e.values()
+              for t in tree.values()}
+    for kind in ("e8m0_overflow", "kv_bitflip", "state_inf"):
+        out = faults.CACHE_POISONERS[kind](cache, 1)
+        assert out is cache
+    assert leaves == {id(t) for e in cache.values() for tree in e.values()
+                      for t in tree.values()}
+    assert all(t.device.type == "meta" for e in cache.values()
+               for tree in e.values() for t in tree.values())
 
 
 def _decode_inputs(device="cpu"):

@@ -121,8 +121,11 @@ def test_max_seq_finish_matches_reference(models):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"admission": object()}, {"spec": object()}])
+    {"mesh": object()}, {"spec": object()},
+    {"mesh": object(), "spec": object()}])
 def test_later_slice_options_raise(models, kwargs):
+    """Mesh serving and speculation are not ported (admission policies
+    are, in ``tests/test_torch_serve_robust.py``)."""
     _, _, model, params = models
     with pytest.raises(NotImplementedError):
         ServeEngine(model, params, batch=1, max_seq=16, device="cpu",
@@ -130,13 +133,19 @@ def test_later_slice_options_raise(models, kwargs):
 
 
 def test_cancel_and_inject_fault_raise(models):
+    """Cancel and fault injection are ported (``tests/
+    test_torch_serve_robust.py``); what they refuse raises: a fault
+    against a request that is not in flight, a status that is not a
+    terminal one.  A queued request cancels without a device step."""
     _, _, model, params = models
     eng = ServeEngine(model, params, batch=1, max_seq=16, device="cpu")
     rid = eng.submit([1, 2], max_new_tokens=2)
-    with pytest.raises(NotImplementedError):
-        eng.cancel(rid)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="not in flight"):
         eng.inject_fault(rid)
+    with pytest.raises(ValueError, match="not in"):
+        eng.cancel(rid, status="gone")
+    assert eng.cancel(rid) and eng.decode_steps == 0
+    assert [(r.status, r.tokens) for r in eng.results] == [("shed", [])]
 
 
 def test_submit_validation(models):
