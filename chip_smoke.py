@@ -97,6 +97,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    beside the bound (bytes of q, k, v and out at the HBM rate; 4 d flops
    per visible (query, key) pair at the bf16 tensor-core or fp32 vector
    peak);
+1g. the shapes seamless-m4t-medium adds, each kernel against its plain
+   version with phase 1's and 1f's tolerances, then timed beside its
+   bound and SDPA: (x) the decoder's cross-attention step,
+   ``flash_decode`` and ``flash_decode_quant`` (fp8, fp4) at b 8 over a
+   ring of 1024 source slots, hq = hkv = 16, d 64, query position 2^30,
+   sources of 600..1000 frames (a ragged tail of slot_pos -1); (y) the
+   encoder's ``flash_attention``, bf16, non-causal, b 8, sq = skv =
+   1000; (z) non-causal cross-attention of 16 queries over 1000 keys;
 2. full-width gptneox-1b (16 layers, d_model 2048, vocab 50432, bf16,
    seeded random weights) through ``ServeEngine.run`` on the card: 8
    requests x 256-token prompts x 64 new tokens, batch 8, max_seq 1024,
@@ -186,6 +194,22 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    balanced, the watchdog clean; a ``poisson_trace`` replayed under the
    virtual clock through a queue of 4 that rejects, twice, with the
    same report;
+2k. seamless-m4t-medium at full depth (12 encoder and 12 decoder layers,
+   d_model 1024, 16 heads of 64, vocab 256206, bf16, seeded weights),
+   batch 8, max_seq and enc_len 1024: 8 requests of 600..1000 source
+   frames + 16-token prompts x 64 new tokens, served with dense, fp8 and
+   fp4 KV (the cross rings quantized too); ``flash_decode`` (or
+   ``flash_decode_quant``) exactly 24 launches a decode step (self and
+   cross), the other kernel and every plain version never; case (g) on
+   the self and the cross ring; ``cross_kv_bytes``; the encode a request
+   (wall and profiled); then forward and prefill of 8 x 1024 frames + 8 x
+   1024 tokens (36 ``flash_attention`` launches a call) and 16 decode
+   steps;
+2l. internvl2-2b at full depth (24 layers, d_model 2048, 16 q-heads over 8
+   KV heads of 128, vocab 92553, bf16): 8 requests of 256 patches + 256
+   tokens x 64 new tokens in 256-token chunks, ``flash_decode`` exactly
+   24 launches a decode step; forward and prefill of 8 x (256 patches +
+   1792 tokens), 24 ``flash_attention`` launches a call;
 3. the dense path on the card and on the CPU in fp32 with TF32 off, full
    width, 2 layers, the same seeded weights: 2 requests x 32-token
    prompts x 16 new tokens, decode_block 7.  Greedy streams must be
@@ -218,6 +242,13 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    reduced (fp32, TF32 off) at capacity factors 8.0 and 1.25 (the
    padded prefill chunks drop tokens), card against CPU, greedy and
    sampled: streams identical, admission logits within atol 1e-4;
+3g. seamless-m4t-medium (dense, fp8 and fp4 KV; sources of 300 and 200
+   frames) and internvl2-2b (64 patches a request) at full width cut to
+   2 layers (2 encoder layers), fp32, TF32 off, card against CPU:
+   streams identical, admission logits within atol = rtol 1e-5 with
+   dense KV (atol 1e-3 quantized), ``enc_out`` within atol = rtol 1e-5,
+   cross rings equal (quantized bytes but for rounding-boundary flips,
+   at most 1 in 1000);
 4. the probe suite ``repro_torch.launch.characterize`` on the card at the
    reference example's sizes, with every probe kernel's launch count and
    every plain version's call count set to 0 just before and read just
@@ -1264,20 +1295,177 @@ def phase1f_flash_attention(model):
     return entries
 
 
-def serve(eng, prompts, counter, expected, label: str, also=()) -> dict:
+def cross_case(seed, b, S, h, d, src_lens, dtype=torch.bfloat16):
+    """q (b, 1, h, d) at ``dtype``, a cross ring's fp32 K / V (b, S, h,
+    d) on the card whose row r holds source positions 0..src_lens[r]-1
+    and then slot_pos -1 (a shorter source's tail), and pos (b,) = 2^30:
+    the decoder's cross-attention step."""
+    q, k, v, _, _ = decode_case(seed, b, S, h, h, d, torch.float32,
+                                np.zeros(b, np.int32))
+    sp = torch.full((b, S), -1, dtype=torch.int32, device="cuda")
+    for r, n in enumerate(src_lens):
+        sp[r, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    from repro_torch.models.transformer import CROSS_POS
+    pos = torch.full((b,), CROSS_POS, dtype=torch.int32, device="cuda")
+    return q.to(dtype), k, v, sp, pos
+
+
+def phase1g_modal_shapes(hbm, peak_bf16):
+    """The shapes the encoder-decoder path adds (seamless-m4t-medium: 16
+    heads of 64), each kernel against its plain version with phase 1's
+    and 1f's tolerances, then timed beside its bound and SDPA (a
+    yardstick): (x) the decoder's cross-attention step, ``flash_decode``
+    and ``flash_decode_quant`` (fp8, fp4) at b 8 over a ring of 1024
+    source slots, hq = hkv = 16, d 64, query position 2^30, sources of
+    600..1000 frames (a ragged tail of slot_pos -1), bf16 q; (y) the
+    encoder's ``flash_attention``, bf16, non-causal, b 8, sq = skv =
+    1000; (z) whole-sequence cross-attention, non-causal, sq 16 over skv
+    1000.  Returns the ``kernels`` entries (launches filled by 2k)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_plain)
+    from repro_torch.kernels.flash_decode_quant import (
+        flash_decode_quant, flash_decode_quant_plain)
+    from repro_torch.models.attention import cache_kv, quantize_kv
+    bf16 = torch.bfloat16
+    b, S, h, d = 8, 1024, 16, 64
+    src = np.linspace(600, 1000, b).astype(int)
+    entries = []
+    for fmt in (None, "float8_e4m3fn", "float4_e2m1fn"):
+        def make(seed, fmt=fmt):
+            q, k, v, sp, pos = cross_case(seed, b, S, h, d, src)
+            if fmt is None:
+                return q, {"k": k.to(bf16), "v": v.to(bf16),
+                           "slot_pos": sp}, pos
+            kv = {"slot_pos": sp}
+            for name, x in (("k", k), ("v", v)):
+                kv[f"{name}_q"], kv[f"{name}_s"] = quantize_kv(x, fmt)
+            return q, kv, pos
+
+        def kern(q, kv, pos, fmt=fmt):
+            if fmt is None:
+                return flash_decode(q, kv["k"], kv["v"], kv["slot_pos"], pos)
+            return flash_decode_quant(q, kv, pos, fmt=fmt)
+
+        def plain(q, kv, pos, fmt=fmt):
+            if fmt is None:
+                return flash_decode_plain(q, kv["k"], kv["v"],
+                                          kv["slot_pos"], pos)
+            return flash_decode_quant_plain(q, kv, pos, fmt=fmt)
+
+        base = make(61)
+        per_set = nbytes(*(t for n, t in base[1].items() if n != "slot_pos"))
+        sets = [base] + [make(62 + i) for i in range(n_sets(per_set) - 1)]
+        q, kv, pos = base
+        rows = visible(kv["slot_pos"], pos).any(dim=1)
+        label = f"x_cross_{fmt or 'bf16'}_b8_hq16_d64_S1024_pos2^30"
+        err = check_close(label, kern(*base), plain(*base), rows,
+                          TOL[bf16])
+        ms = time_ms(kern, sets)
+        plain_ms = time_ms(plain, sets)
+        dense = []
+        for qs, kvs, ps in sets:
+            kd, vd = cache_kv(kvs, fmt, d, out_dtype=bf16)
+            dense.append((qs.transpose(1, 2), kd.transpose(1, 2),
+                          vd.transpose(1, 2),
+                          visible(kvs["slot_pos"], ps)[:, None, None]))
+        dense = dense[:n_sets(nbytes(*dense[0][1:3]))]
+        library_ms = time_ms(
+            lambda qt, kt, vt, mask: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(d)),
+            dense)
+        del dense
+        n_vis = int(visible(kv["slot_pos"], pos).sum())
+        row_bytes = (kv["k_q"].shape[3] + kv["k_s"].shape[3] if fmt
+                     else d * kv["k"].element_size())
+        bound_ms, bound_by, moved = decode_bound(
+            n_vis, h, h, d, row_bytes, q, nbytes(kv["slot_pos"], pos), hbm,
+            peak_bf16)
+        log(f"[kernel] {label} timing: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {moved} B, {4 * n_vis * h * d} "
+            f"flop; {n_vis} visible slots; {len(sets)} input sets)")
+        name = "flash_decode_quant" if fmt else "flash_decode"
+        entries.append({
+            "name": f"{name}[{label}]", "route": "cuda",
+            "source": FDQ_SOURCE if fmt else FD_SOURCE,
+            "replaces": FDQ_REPLACES if fmt else FD_REPLACES,
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "path": f"2k seamless {fmt or 'dense'} serving"})
+        del sets, base, q, kv
+
+    for label, sq, skv in (("y_encoder", 1000, 1000),
+                           ("z_cross_prompt", 16, 1000)):
+        spec = dict(b=b, sq=sq, skv=skv, hq=h, hkv=h, d=d, dtype=bf16)
+        base = fa_case(seed=71 + sq, **spec)
+        got = flash_attention(*base, causal=False)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(*base, causal=False)
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"[kernel] flash_attention {label} (non-causal, sq {sq}, skv "
+            f"{skv}, d 64): max_abs_err {err:.3e} (tol atol 2e-2)")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash_attention {label}: not finite")
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=0.0)
+        sets = [base] + [fa_case(seed=171 + sq + i, **spec)
+                         for i in range(n_sets(nbytes(*base)) - 1)]
+
+        def kern(q, k, v):
+            return flash_attention(q, k, v, causal=False)
+
+        def plain(q, k, v):
+            return flash_attention_plain(q, k, v, causal=False)
+
+        ms = time_ms(kern, sets)
+        plain_ms = time_ms(plain, sets[:2], reps=5, n=2)
+        sdpa_sets = [tuple(t.transpose(1, 2).contiguous() for t in st)
+                     for st in sets]
+        library_ms = time_ms(
+            lambda qt, kt, vt: F.scaled_dot_product_attention(qt, kt, vt),
+            sdpa_sets)
+        del sdpa_sets
+        moved = nbytes(*base) + nbytes(base[0])        # q, k, v in; out
+        flops = 4 * d * sq * skv * b * h
+        bound_ms, bound_by = bound(moved, flops, hbm, peak_bf16)
+        log(f"[kernel] flash_attention {label} timing: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {moved} B, {flops} flop); {len(sets)} input "
+            f"sets")
+        entries.append({
+            "name": f"flash_attention[{label},b8_sq{sq}_skv{skv}_hq16_d64_"
+                    f"non_causal]",
+            "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "path": "2k seamless whole sequence"})
+        del sets, base, got, want
+        torch.cuda.empty_cache()
+    return entries
+
+
+def serve(eng, prompts, counter, expected, label: str, also=(),
+          modal=None) -> dict:
     """Warm up, then serve ``prompts`` x 64 new tokens with the launch
     count of ``counter`` (a kernel wrapper) set to 0 just before and read
     just after.  Checks every request and that the count equals
     ``expected(decode steps)``, and the same for each (wrapper, expected)
     pair of ``also``; prints and returns the end-to-end metrics (the
-    launches of ``also`` under ``also_launches``)."""
-    eng.submit(list(range(1, 41)), max_new_tokens=4)       # warm-up
+    launches of ``also`` under ``also_launches``).  ``modal``: one dict
+    of ``submit`` keywords a prompt (``frames=`` / ``patches=``)."""
+    modal = modal or [{}] * len(prompts)
+    eng.submit(list(range(1, 41)), max_new_tokens=4, **modal[0])  # warm-up
     eng.run()
     eng.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for p in prompts:
-        eng.submit(p, max_new_tokens=64)
+    for p, kw in zip(prompts, modal):
+        eng.submit(p, max_new_tokens=64, **kw)
     for other, _ in also:
         other.launches = 0
     counter.launches = 0
@@ -1325,8 +1513,8 @@ def serve(eng, prompts, counter, expected, label: str, also=()) -> dict:
 
     # where a decode step's time goes: one more 16-step block, profiled
     eng.reset()
-    for p in prompts:
-        eng.submit(p, max_new_tokens=40)
+    for p, kw in zip(prompts, modal):
+        eng.submit(p, max_new_tokens=40, **kw)
     eng.decode_loop(16)                        # admission + first block
     busy, kt, n_kern, top, _ = profile_fn(lambda: eng.decode_loop(16),
                                           counter.__name__)
@@ -1720,23 +1908,30 @@ def _pool_check(label: str, eng) -> dict:
     """Case (g) for every position in the period: the decode kernel of
     that position (``flash_decode``, or ``flash_decode_quant`` in its
     KV format) on layer 0 of the engine's own pool, with the window and
-    softcap the model passes it, against its plain version."""
+    softcap the model passes it, against its plain version; on a cross
+    ring, at query position 2^30 with neither."""
     from repro_torch.kernels.flash_decode import (
         flash_decode, flash_decode_plain)
     from repro_torch.kernels.flash_decode_quant import (
         flash_decode_quant, flash_decode_quant_plain)
+    from repro_torch.models import transformer as tf
     cfg = eng.model.cfg
     qg = torch.randn((eng.batch, 1, cfg.n_heads, cfg.head_dim), device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(7)
                      ).to(torch.bfloat16)
-    pos = eng.state["pos"]
     rows = torch.ones(eng.batch, dtype=torch.bool, device="cuda")
     errs = {}
-    for i, blk in enumerate(cfg.block_pattern()):
-        if blk.mixer != "attn":
-            continue
-        kv = {n: t[0] for n, t in eng.cache[f"pos{i}"]["kv"].items()}
+    rings = [(i, part) for i, blk in enumerate(cfg.block_pattern())
+             if blk.mixer == "attn" for part in ("kv", "cross_kv")
+             if part in eng.cache[f"pos{i}"]]
+    for i, part in rings:
+        blk = cfg.block_pattern()[i]
+        kv = {n: t[0] for n, t in eng.cache[f"pos{i}"][part].items()}
         flags = dict(window=blk.window, softcap=cfg.attn_logit_softcap)
+        pos = eng.state["pos"]
+        if part == "cross_kv":
+            flags = dict(window=None, softcap=None)
+            pos = torch.full_like(pos, tf.CROSS_POS)
         fmt = cfg.kv_format_for(i)
         if fmt:
             got = flash_decode_quant(qg, kv, pos, fmt=fmt, **flags)
@@ -1746,8 +1941,9 @@ def _pool_check(label: str, eng) -> dict:
             got, want = flash_decode(*args, **flags), flash_decode_plain(
                 *args, **flags)
         torch.cuda.synchronize()
-        errs[f"pos{i}"] = check_close(
-            f"{label} g_engine_pool pos{i} ({fmt or 'dense'}, window "
+        key = f"pos{i}" + (".cross" if part == "cross_kv" else "")
+        errs[key] = check_close(
+            f"{label} g_engine_pool {key} ({fmt or 'dense'}, window "
             f"{blk.window}, softcap {cfg.attn_logit_softcap}, S "
             f"{kv['slot_pos'].shape[1]})", got, want, rows,
             TOL[torch.bfloat16])
@@ -1755,12 +1951,14 @@ def _pool_check(label: str, eng) -> dict:
 
 
 def _serve_dense(cfg, params, prompts, label, max_seq, prefill_chunk,
-                 **kw) -> dict:
-    """One full-width engine through :func:`serve`: the decode kernel of
-    its KV (``flash_decode`` dense, ``flash_decode_quant`` quantized)
-    exactly ``n_layers`` launches a decode step, the other kernel and
-    both plain versions never; then case (g) on every position in the
-    period.  Returns serve's metrics."""
+                 modal=None, per_step=None, **kw) -> dict:
+    """One full-width engine through :func:`serve` (``modal``: its
+    ``submit`` keywords a prompt): the decode kernel of its KV
+    (``flash_decode`` dense, ``flash_decode_quant`` quantized) exactly
+    ``per_step`` (default ``n_layers``) launches a decode step, the other
+    kernel and both plain versions never; then case (g) on every ring of
+    every position in the period.  Returns serve's metrics."""
+    per_step = per_step or cfg.n_layers
     from repro_torch.kernels.flash_decode import (
         flash_decode, flash_decode_plain)
     from repro_torch.kernels.flash_decode_quant import (
@@ -1774,24 +1972,26 @@ def _serve_dense(cfg, params, prompts, label, max_seq, prefill_chunk,
     counter, other = ((flash_decode_quant, flash_decode) if quant
                       else (flash_decode, flash_decode_quant))
     ks = eng.kv_stats
-    slots = [entry["kv"]["slot_pos"].shape[2] for entry in eng.cache.values()]
+    slots = [ring["slot_pos"].shape[2] for entry in eng.cache.values()
+             if isinstance(entry, dict) for ring in entry.values()]
     log(f"[{label}] KV pool {ks['kv_bytes']} B ({ks['kv_bytes'] / 2**30:.3f} "
         f"GiB), per position in the period {json.dumps(ks['per_layer'])}, "
         f"ring slots {slots}")
     other.launches = 0
     flash_decode_plain.calls = flash_decode_quant_plain.calls = 0
-    out = serve(eng, prompts, counter, lambda steps: cfg.n_layers * steps,
-                label)
+    out = serve(eng, prompts, counter, lambda steps: per_step * steps,
+                label, modal=modal)
     stray = (other.launches, flash_decode_plain.calls,
              flash_decode_quant_plain.calls)
     if stray != (0, 0, 0):
         raise AssertionError(f"{label}: {other.__name__} launches, plain "
                              f"calls (dense, quant) {stray}; expected 0")
     log(f"[{label}] {counter.__name__} {out['launches']} launches = "
-        f"{cfg.n_layers} x {out['steps']} decode steps; "
+        f"{per_step} x {out['steps']} decode steps; "
         f"{other.__name__} and both plain versions 0")
     out["pool_err"] = _pool_check(label, eng)
     out["kv_bytes"] = ks["kv_bytes"]
+    out["cross_kv_bytes"] = ks["cross_kv_bytes"]
     del eng
     torch.cuda.empty_cache()
     return out
@@ -2315,6 +2515,216 @@ def phase2j_robustness(cfg, prompts):
             "injector": injector}
 
 
+def _modal_whole_sequence(label, model, params, batch, fa_per_call,
+                          fd_per_step, new=16):
+    """``Model.forward`` and ``Model.prefill`` of ``batch`` (after a
+    warm-up on a slice of it), then ``new`` greedy decode steps:
+    ``flash_attention`` exactly ``fa_per_call`` launches a forward and a
+    prefill, ``flash_decode`` ``fd_per_step`` a decode step, their plain
+    versions never; the prefill's last logits within atol 1e-3 of the
+    forward's.  Returns the figures of phase 2e (wall and profiled
+    device times, tok/s, ms a decode step, peak memory, flash_attention's
+    ms a call)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_plain)
+    b, s = batch["tokens"].shape
+    trunk = s + (batch["patches"].shape[1] if "patches" in batch else 0)
+    vocab = model.cfg.vocab_size
+    warm = {k: v[:, :128] for k, v in batch.items()}
+    model.forward(params, warm)
+    model.prefill(params, warm, 256)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def zero():
+        flash_attention.launches = flash_attention_plain.calls = 0
+        flash_decode.launches = flash_decode_plain.calls = 0
+
+    def expect(what, fa, fd):
+        got = (flash_attention.launches, flash_attention_plain.calls,
+               flash_decode.launches, flash_decode_plain.calls)
+        if got != (fa, 0, fd, 0):
+            raise AssertionError(f"{label} {what}: (flash_attention, plain, "
+                                 f"flash_decode, plain) {got}, expected "
+                                 f"{(fa, 0, fd, 0)}")
+        zero()
+
+    zero()
+    (logits, _), fwd_s = _timed(lambda: model.forward(params, batch))
+    expect("forward", fa_per_call, 0)
+    if logits.shape != (b, trunk, vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{label} forward: logits {tuple(logits.shape)}"
+                             f" or not finite")
+    last = logits[:, -1].clone()
+    del logits
+    (pre, cache), pre_s = _timed(lambda: model.prefill(params, batch,
+                                                       trunk + new))
+    expect("prefill", fa_per_call, 0)
+    err = (pre - last).abs().max().item()
+    log(f"[{label}] prefill logits against forward's at trunk position "
+        f"{trunk - 1}: max_abs_err {err:.3e} (tol atol 1e-3)")
+    torch.testing.assert_close(pre, last, atol=1e-3, rtol=0.0)
+
+    def decode():
+        tok = pre.argmax(-1)
+        for i in range(new):
+            pos = torch.full((b,), trunk + i, dtype=torch.int32,
+                             device="cuda")
+            lg = model.decode_step(params, cache, tok, pos)
+            tok = lg.argmax(-1)
+        return lg
+
+    lg, dec_s = _timed(decode)
+    expect("decode", 0, fd_per_step * new)
+    if not torch.isfinite(lg).all():
+        raise AssertionError(f"{label} decode: logits not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del cache, pre, lg, last
+    fwd = profile_fn(lambda: model.forward(params, batch), "flash_attention")
+    pre_p = profile_fn(lambda: model.prefill(params, batch, trunk + new),
+                       "flash_attention")
+    torch.cuda.empty_cache()
+    out = {"forward_s": fwd_s, "prefill_s": pre_s,
+           "prefill_tok_s": b * trunk / pre_s,
+           "decode_step_ms": 1e3 * dec_s / new, "peak_gib": peak,
+           "forward_busy_ms": fwd[0], "prefill_busy_ms": pre_p[0],
+           "forward_kernels": fwd[2],
+           "fa_ms_per_call": fwd[1] / max(fwd[4], 1),
+           "fa_share_prefill": pre_p[1] / max(pre_p[0], 1e-9),
+           "fa_launches": fa_per_call, "fd_launches": fd_per_step * new}
+    log(f"[{label}] {b} x {trunk}: forward {fwd_s:.3f} s wall, "
+        f"{fwd[0]:.2f} ms device busy ({fwd[2]} kernels); prefill "
+        f"{pre_s:.3f} s wall ({out['prefill_tok_s']:.0f} tok/s), "
+        f"{pre_p[0]:.2f} ms device busy; {new} greedy decode steps "
+        f"{out['decode_step_ms']:.2f} ms per step; peak memory "
+        f"{peak:.2f} GiB; flash_attention {out['fa_ms_per_call']:.4f} ms a "
+        f"call ({fwd[4]} launches in the profiled forward), "
+        f"{out['fa_share_prefill']:.3f} of the prefill's device time")
+    for key, count, t in pre_p[3]:
+        log(f"[{label}]   prefill {t:9.3f} ms  x{count:<5d} {key}")
+    return out
+
+
+def phase2k_seamless():
+    """seamless-m4t-medium at full width and depth (12 encoder and 12
+    decoder layers, d_model 1024, 16 heads of 64, d_ff 4096, GELU,
+    vocab 256206), bf16, seeded weights.  Served (batch 8, max_seq 1024,
+    enc_len 1024, decode blocks of 16) with dense KV, then fp8 and fp4
+    KV (the cross rings quantized too): 8 requests, each a source of
+    600..1000 frames (lengths and N(0, 0.02^2) frames from
+    ``default_rng(2)``), a 16-token prompt and 64 new tokens;
+    ``flash_decode`` (or
+    ``flash_decode_quant``) exactly 24 launches a decode step (self and
+    cross), the other kernel and both plain versions never; case (g) on
+    the self and the cross ring.  The encode a request, wall and
+    profiled (12 ``flash_attention`` launches each).  Then forward and
+    prefill of 8 x 1024 frames + 8 x 1024 tokens: 36 ``flash_attention``
+    launches a call (12 encoder, 12 self, 12 cross), and 16 decode
+    steps."""
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model import build_model, make_batch
+    cfg = get_config("seamless-m4t-medium")
+    model = build_model(cfg)
+    params, init_s = _timed(lambda: model.init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    log(f"[seamless] {cfg.name}: {cfg.n_encoder_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, params "
+        f"{nbytes(*flatten(params).values()) / 2**30:.3f} GiB "
+        f"({cfg.param_count() / 1e9:.3f}B), seeded init {init_s:.1f} s")
+    rng = np.random.default_rng(2)
+    src = rng.integers(600, 1001, 8)
+    frames = [rng.standard_normal((int(n), cfg.d_model), np.float32)
+              * np.float32(0.02) for n in src]
+    prompts = [rng.integers(0, cfg.vocab_size, 16).tolist()
+               for _ in range(8)]
+    modal = [{"frames": f} for f in frames]
+    out = {}
+    for kv_format in (None, "float8_e4m3fn", "float4_e2m1fn"):
+        label = f"engine seamless {kv_format or 'dense'} KV"
+        out[kv_format or "dense"] = _serve_dense(
+            cfg, params, prompts, label, 1024, 256, modal=modal,
+            per_step=2 * cfg.n_layers, kv_format=kv_format, enc_len=1024)
+        log(f"[{label}] sources {src.tolist()} frames; cross_kv_bytes "
+            f"{out[kv_format or 'dense']['cross_kv_bytes']}")
+
+    # the encode a request: the engine's encode_slot leg alone
+    cache = model.init_cache(8, 1024, "cuda", enc_len=1024)
+    dev_frames = [torch.from_numpy(f[None]).to("cuda", torch.bfloat16)
+                  for f in frames]
+
+    def encode_all():
+        for slot, f in enumerate(dev_frames):
+            model.encode_slot(params, cache, f, slot, f.shape[1])
+
+    encode_all()                                   # warm-up
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    _, wall = _timed(lambda: (encode_all(), torch.cuda.synchronize()))
+    if flash_attention.launches != 8 * cfg.n_encoder_layers:
+        raise AssertionError(f"seamless encode: {flash_attention.launches} "
+                             f"flash_attention launches for 8 requests")
+    busy, fa_ms, n_kern, top, fa_n = profile_fn(encode_all,
+                                                "flash_attention")
+    out["encode"] = {"wall_ms": 1e3 * wall / 8, "busy_ms": busy / 8,
+                     "fa_ms": fa_ms / max(fa_n, 1), "kernels": n_kern / 8}
+    log(f"[seamless encode] a request (600..1000 frames, mean "
+        f"{src.mean():.0f}): {1e3 * wall / 8:.2f} ms wall, {busy / 8:.3f} "
+        f"ms device busy ({n_kern / 8:.0f} kernels), flash_attention "
+        f"{fa_ms / max(fa_n, 1):.4f} ms a call ({fa_n} launches)")
+    for key, count, t in top:
+        log(f"[seamless encode]   {t:9.3f} ms  x{count:<5d} {key}")
+    del cache, dev_frames
+
+    batch = make_batch(cfg, 8, 1024, 3, "cuda")
+    out["whole"] = _modal_whole_sequence(
+        "seamless whole-seq", model, params, batch,
+        cfg.n_encoder_layers + 2 * cfg.n_layers, 2 * cfg.n_layers)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase2l_internvl2():
+    """internvl2-2b at full width and depth (24 layers, d_model 2048, 16
+    q-heads over 8 KV heads of 128, d_ff 8192, SwiGLU, vocab 92553),
+    bf16, seeded weights.  Served (batch 8, max_seq 1024, chunks of 256,
+    decode blocks of 16) with dense KV: 8 requests of 256 patches
+    (N(0, 0.02^2)) + 256 tokens x 64 new tokens, the patches streamed as
+    embedding chunks; ``flash_decode`` exactly 24 launches a decode
+    step, case (g).  Then forward and prefill of 8 x (256 patches + 1792
+    tokens): 24 ``flash_attention`` launches a call, and 16 decode
+    steps."""
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model, make_batch
+    cfg = get_config("internvl2-2b")
+    model = build_model(cfg)
+    params, init_s = _timed(lambda: model.init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    log(f"[internvl2] {cfg.name}: params "
+        f"{nbytes(*flatten(params).values()) / 2**30:.3f} GiB "
+        f"({cfg.param_count() / 1e9:.3f}B), seeded init {init_s:.1f} s")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, 256).tolist()
+               for _ in range(8)]
+    modal = [{"patches": rng.standard_normal((256, cfg.d_model), np.float32)
+              * np.float32(0.02)} for _ in range(8)]
+    out = {"dense": _serve_dense(cfg, params, prompts,
+                                 "engine internvl2 dense KV", 1024, 256,
+                                 modal=modal)}
+    batch = make_batch(cfg, 8, 2048, 5, "cuda")
+    out["whole"] = _modal_whole_sequence(
+        "internvl2 whole-seq", model, params, batch, cfg.n_layers,
+        cfg.n_layers)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 class _Recording:
     """A model whose decode steps keep their logits (for diagnosis)."""
 
@@ -2331,11 +2741,14 @@ class _Recording:
 
 
 def _serve_both(model3, params3, prompts3, max_seq=64, prefill_chunk=32,
-                **kw):
-    """Serve ``prompts3`` on the card and on the CPU.  Returns, by
-    device, the streams, the admission logits, the decode logits of every
-    step and the weight store."""
+                modal=None, caches=None, **kw):
+    """Serve ``prompts3`` on the card and on the CPU (``modal``: the
+    ``submit`` keywords of each prompt).  Returns, by device, the
+    streams, the admission logits, the decode logits of every step and
+    the weight store; with a dict ``caches``, also the engine's cache
+    after the run, on the host, by device."""
     from repro_torch.serve import ServeEngine
+    modal = modal or [{}] * len(prompts3)
     runs = {}
     for dev in ("cuda", "cpu"):
         e = ServeEngine(model3, params3, batch=2, max_seq=max_seq,
@@ -2351,10 +2764,12 @@ def _serve_both(model3, params3, prompts3, max_seq=64, prefill_chunk=32,
 
         e._prefill_into_slot = recording
         e.model = _Recording(e.model, steps)
-        for p in prompts3:
-            e.submit(p, max_new_tokens=16)
+        for p, mkw in zip(prompts3, modal):
+            e.submit(p, max_new_tokens=16, **mkw)
         runs[dev] = ([(r.status, r.tokens) for r in e.run()], seen, steps,
                      e.weight_store)
+        if caches is not None:
+            caches[dev] = _to(e.cache, "cpu")
         del e
     return runs
 
@@ -2720,6 +3135,105 @@ def phase3f_moe_parity():
     log("[parity moe] every admission logit within atol 1e-4")
 
 
+def _ring_parity(label: str, got: dict, want: dict, fmt) -> str:
+    """A ring on the card against the CPU's: ``slot_pos`` equal; dense
+    fp32 K/V within 1e-5; quantized scale and code bytes equal but where
+    an fp32 input sits on a rounding boundary of the format (at most 1
+    in 1000 bytes: the two devices sum in different orders)."""
+    if not torch.equal(got["slot_pos"], want["slot_pos"]):
+        raise AssertionError(f"{label}: slot_pos differs")
+    if fmt is None:
+        err = max((got[n] - want[n]).abs().max().item() for n in "kv")
+        torch.testing.assert_close(got["k"], want["k"], atol=1e-5, rtol=0)
+        torch.testing.assert_close(got["v"], want["v"], atol=1e-5, rtol=0)
+        return f"K/V max_abs_err {err:.3e}"
+    diff = total = 0
+    for n in ("k_q", "k_s", "v_q", "v_s"):
+        a, c = _raw(got[n]), _raw(want[n])
+        diff += int((a != c).sum())
+        total += a.numel()
+    if diff > total // 1000:
+        raise AssertionError(f"{label}: {diff} of {total} bytes differ")
+    return f"{diff} of {total} code / scale bytes differ"
+
+
+def phase3g_modal_parity():
+    """seamless-m4t-medium and internvl2-2b at full width cut to 2
+    layers (seamless: 2 encoder layers), fp32, TF32 off, card against
+    CPU: 2 requests x 16-token prompts x 16 new tokens, decode blocks of
+    7; seamless with sources of 300 and 200 frames (enc_len 512) with
+    dense, fp8 and fp4 KV, internvl2 with 64 patches each (chunks of
+    32).  Streams identical, admission logits within atol = rtol 1e-5
+    (dense KV) or atol 1e-3 (quantized: a code flipped at a rounding
+    boundary moves a logit by ~1e-4), the ``enc_out`` rows within atol =
+    rtol 1e-5 and the cross rings (:func:`_ring_parity`) as the CPU's;
+    the decode kernel once a layer a step on the card (twice for
+    seamless)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode_quant import flash_decode_quant
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(26)
+    for arch, fmts in (("seamless-m4t-medium",
+                        (None, "float8_e4m3fn", "float4_e2m1fn")),
+                       ("internvl2-2b", (None,))):
+        cfg3 = dataclasses.replace(
+            get_config(arch), n_layers=2, param_dtype="float32",
+            compute_dtype="float32",
+            n_encoder_layers=2 if get_config(arch).is_encoder_decoder else 0)
+        model3 = build_model(cfg3)
+        params3 = model3.init(torch.Generator().manual_seed(0), "cpu")
+        prompts3 = [rng.integers(0, cfg3.vocab_size, 16).tolist()
+                    for _ in range(2)]
+        encdec = cfg3.is_encoder_decoder
+        modal = [{"frames": rng.standard_normal((n, cfg3.d_model),
+                                                np.float32) * 0.02}
+                 if encdec else
+                 {"patches": rng.standard_normal((64, cfg3.d_model),
+                                                 np.float32) * 0.02}
+                 for n in (300, 200)]
+        per_step = cfg3.n_layers * (2 if encdec else 1)
+        for fmt in fmts:
+            label = f"parity {arch} 2 layers fp32, {fmt or 'dense'} KV"
+            counter = flash_decode_quant if fmt else flash_decode
+            before = counter.launches
+            caches = {}
+            runs = _serve_both(model3, params3, prompts3, max_seq=128,
+                               modal=modal, caches=caches, kv_format=fmt,
+                               **({"enc_len": 512} if encdec else {}))
+            launched = counter.launches - before
+            steps = len(runs["cuda"][2])
+            if launched != per_step * steps or not steps:
+                raise AssertionError(f"{label}: {counter.__name__} "
+                                     f"launched {launched} times in "
+                                     f"{steps} steps")
+            _check_parity(label, runs)
+            lerr = max((a - c).abs().max().item()
+                       for a, c in zip(runs["cuda"][1], runs["cpu"][1]))
+            # dense: summation order only; quantized: a code that flips
+            # at a rounding boundary moves a logit by ~1e-4 (phase 3b's
+            # tolerance)
+            ltol = dict(atol=1e-3, rtol=0.0) if fmt else dict(atol=1e-5,
+                                                               rtol=1e-5)
+            for a, c in zip(runs["cuda"][1], runs["cpu"][1]):
+                torch.testing.assert_close(a, c, **ltol)
+            note = f"admission logits max_abs_err {lerr:.3e} (tol {ltol})"
+            if encdec:
+                got, want = caches["cuda"], caches["cpu"]
+                eerr = (got["enc_out"] - want["enc_out"]).abs().max().item()
+                torch.testing.assert_close(got["enc_out"], want["enc_out"],
+                                           atol=1e-5, rtol=1e-5)
+                ring = _ring_parity(label, got["pos0"]["cross_kv"],
+                                    want["pos0"]["cross_kv"], fmt)
+                note += (f"; enc_out max_abs_err {eerr:.3e} (tol atol = "
+                         f"rtol 1e-5); "
+                         f"cross rings: {ring}")
+            log(f"[{label}] {note}")
+        del model3, params3
+
+
 def phase4_characterize():
     """``repro_torch.launch.characterize`` at the reference example's
     sizes, the counters set to 0 just before and read just after; then a
@@ -2814,7 +3328,8 @@ def main() -> int:
     probe_entries = phase1d_probes(model)
     ssd_entries = phase1e_ssd_scan(model)
     fa_entries = phase1f_flash_attention(model)
-    stamp("1-1f")
+    modal_entries = phase1g_modal_shapes(hbm, peak_bf16)
+    stamp("1-1g")
 
     # ---- 2: full-width serving, then the GEMM path ------------------- #
     cfg = get_config("gptneox-1b")
@@ -2852,14 +3367,35 @@ def main() -> int:
     stamp("2i")
     phase2j_robustness(cfg, prompts)
     stamp("2j")
+    seamless = phase2k_seamless()
+    stamp("2k")
+    internvl2 = phase2l_internvl2()
+    stamp("2l")
+    modal_paths = {
+        "2k seamless dense serving": seamless["dense"]["launches"],
+        "2k seamless float8_e4m3fn serving": seamless["float8_e4m3fn"][
+            "launches"],
+        "2k seamless float4_e2m1fn serving": seamless["float4_e2m1fn"][
+            "launches"],
+        "2k seamless whole sequence": seamless["whole"]["fa_launches"],
+        "2k seamless decode after prefill": seamless["whole"][
+            "fd_launches"],
+        "2l internvl2 serving": internvl2["dense"]["launches"],
+        "2l internvl2 whole sequence": internvl2["whole"]["fa_launches"],
+        "2l internvl2 decode after prefill": internvl2["whole"][
+            "fd_launches"]}
     for e in fd_entries:
         e["paths"] = {"2 gptneox-1b serving": e["launches"],
                       "2h jamba serving": jamba["dense"]["launches"],
                       **{f"2i {arch} serving": n
-                         for arch, n in moe_models.items()}}
+                         for arch, n in moe_models.items()},
+                      **{k: v for k, v in modal_paths.items()
+                         if "float" not in k and "whole" not in k}}
     for e in fdq_entries:
         e["paths"] = {"2b gptneox-1b serving": e["launches"],
-                      "2h jamba serving": jamba["float8_e4m3fn"]["launches"]}
+                      "2h jamba serving": jamba["float8_e4m3fn"]["launches"],
+                      **{k: v for k, v in modal_paths.items()
+                         if "float" in k}}
     for e in ssd_entries:
         e["paths"] = {"2d mamba2 serving": e["launches"],
                       "2h jamba serving": jamba["dense"]["also_launches"][
@@ -2869,7 +3405,15 @@ def main() -> int:
     for e in fa_entries:
         e["paths"] = {"2e gptneox-1b whole sequence": e["launches"],
                       "2h jamba whole sequence": jamba["whole"][
-                          "fa_launches"]}
+                          "fa_launches"],
+                      "2k seamless whole sequence": modal_paths[
+                          "2k seamless whole sequence"],
+                      "2l internvl2 whole sequence": modal_paths[
+                          "2l internvl2 whole sequence"]}
+    for e in modal_entries:
+        path = e.pop("path")
+        e["launches"] = modal_paths[path]
+        e["paths"] = {path: modal_paths[path]}
 
     # ---- 3: card vs CPU, fp32 ------------------------------------------ #
     model3, params3, prompts3 = phase3_parity(cfg)
@@ -2878,7 +3422,8 @@ def main() -> int:
     phase3d_whole_sequence_parity()
     phase3e_dense_family_parity()
     phase3f_moe_parity()
-    stamp("3-3f")
+    phase3g_modal_parity()
+    stamp("3-3g")
 
     # ---- 4: the probe suite -------------------------------------------- #
     counts = phase4_characterize()
@@ -2893,7 +3438,7 @@ def main() -> int:
         log(line)
     print(json.dumps({"kernels": [*fd_entries, *fdq_entries, *qmm_entries,
                                   *probe_entries, *ssd_entries,
-                                  *fa_entries]}))
+                                  *fa_entries, *modal_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -22,7 +22,10 @@ batching, on the card by default.
 gemma2-2b, qwen2.5-3b, llama3.2-3b, gemma-2b, mamba2-2.7b,
 jamba-v0.1-52b, kimi-k2-1t-a32b, llama4-maverick-400b-a17b; the last
 three do not fit one card at full depth: ``--layers`` cuts the depth
-to whole block periods).
+to whole block periods).  Requests carry tokens only, as the
+reference's launcher makes them: internvl2-2b serves them without a
+patch prefix, and seamless-m4t-medium, which needs source frames
+(``ServeEngine.submit(frames=)``), refuses them.
 ``--temperature`` above 0 samples (engine seed 0, every vocabulary
 entry a candidate) where 0 decodes greedily, as the reference's
 launcher does.

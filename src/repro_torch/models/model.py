@@ -1,15 +1,21 @@
 """Model API (counterpart of ``repro.models.model``): ``build_model(cfg)``
-returns a :class:`Model` whose methods close over the config."""
+returns a :class:`Model` whose methods close over the config; batches
+are plain dicts (:func:`batch_fields`, :func:`make_batch`)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.compat import resolve_dtype
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tf
+
+# Number of vision patches the VLM frontend stub contributes to the trunk.
+VLM_PATCHES = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,7 +28,9 @@ class Model:
 
     # -- execution modes: whole sequence, then decode ----------------- #
     def forward(self, params: dict, batch: Dict[str, torch.Tensor]):
-        """(logits (b, s, vocab) fp32, aux) of ``batch["tokens"]``."""
+        """(logits (b, s_trunk, vocab) fp32, aux) of ``batch`` (the fields
+        of :func:`batch_fields`: ``tokens``, and ``frames`` or
+        ``patches``)."""
         return tf.lm_forward(params, batch, self.cfg)
 
     def features(self, params: dict, batch: Dict[str, torch.Tensor]):
@@ -46,10 +54,18 @@ class Model:
                                  active=active)
 
     def prefill_chunk(self, params: dict, cache: dict, tokens: torch.Tensor,
-                      slot: int, pos_offset: int, valid_len: int
+                      slot: int, pos_offset: int, valid_len: int,
+                      embeds: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
         return tf.lm_prefill_chunk(params, cache, tokens, slot, pos_offset,
-                                   valid_len, self.cfg)
+                                   valid_len, self.cfg, embeds=embeds)
+
+    def encode_slot(self, params: dict, cache: dict, frames: torch.Tensor,
+                    slot: int, src_len: int) -> dict:
+        """Encode one request's frames into pool row ``slot``'s
+        ``enc_out`` and cross-KV (``transformer.lm_encode_slot``)."""
+        return tf.lm_encode_slot(params, cache, frames, slot, src_len,
+                                 self.cfg)
 
     def clear_slot(self, cache: dict, slot: int) -> dict:
         return tf.clear_slot(cache, slot)
@@ -57,8 +73,10 @@ class Model:
     def min_cache_capacity(self, max_seq: int) -> int:
         return tf.min_cache_capacity(self.cfg, max_seq)
 
-    def init_cache(self, batch: int, max_seq: int, device) -> dict:
-        return tf.init_cache(self.cfg, batch, max_seq, device)
+    def init_cache(self, batch: int, max_seq: int, device,
+                   enc_len: int = 0) -> dict:
+        return tf.init_cache(self.cfg, batch, max_seq, device,
+                             enc_len=enc_len)
 
     def kv_cache_stats(self, cache: dict) -> dict:
         return tf.kv_cache_stats(cache, self.cfg)
@@ -66,3 +84,48 @@ class Model:
 
 def build_model(cfg: ArchConfig) -> Model:
     return Model(cfg)
+
+
+# --------------------------------------------------------------------- #
+# Batch construction
+# --------------------------------------------------------------------- #
+
+def vlm_patches(seq_len: int) -> int:
+    """Patch-prefix length of a VLM trunk of ``seq_len`` (shrinks for
+    short sequences)."""
+    return min(VLM_PATCHES, max(1, seq_len // 2))
+
+
+def batch_fields(cfg: ArchConfig, batch: int, seq_len: int
+                 ) -> Dict[str, Tuple[tuple, str]]:
+    """{name: (shape, dtype)} of a forward / prefill batch of ``batch``
+    rows and ``seq_len`` trunk positions, as the reference's: frame
+    embeddings and ``seq_len`` tokens for an encoder-decoder model, a
+    patch prefix and the remaining tokens for a VLM, else tokens."""
+    emb = cfg.compute_dtype
+    if cfg.is_encoder_decoder:
+        return {"frames": ((batch, seq_len, cfg.d_model), emb),
+                "tokens": ((batch, seq_len), "int32")}
+    if cfg.frontend == "vision":
+        n_pat = vlm_patches(seq_len)
+        return {"patches": ((batch, n_pat, cfg.d_model), emb),
+                "tokens": ((batch, seq_len - n_pat), "int32")}
+    return {"tokens": ((batch, seq_len), "int32")}
+
+
+def make_batch(cfg: ArchConfig, batch: int, seq_len: int, seed: int,
+               device) -> Dict[str, torch.Tensor]:
+    """A batch of :func:`batch_fields` drawn with numpy from ``seed``:
+    tokens uniform over the vocabulary, embeddings N(0, 0.02^2) at the
+    compute dtype."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (shape, dtype) in batch_fields(cfg, batch, seq_len).items():
+        if dtype == "int32":
+            arr = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+            out[name] = torch.from_numpy(arr).to(device)
+        else:
+            arr = rng.standard_normal(shape, np.float32) * np.float32(0.02)
+            out[name] = torch.from_numpy(arr).to(device,
+                                                 resolve_dtype(dtype))
+    return out

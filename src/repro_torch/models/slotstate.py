@@ -1,9 +1,11 @@
 """Per-slot decode-state protocol (counterpart of
 ``repro.models.slotstate``): the ring-KV parts of the attention layers
-and the recurrent parts of the SSM layers.
+(self- and cross-attention), the recurrent parts of the SSM layers and
+the encoder output.
 
 The serving cache is a dict of ``pos{i}`` layer entries whose leaves
-carry the period axis first: ``(n_periods, batch, ...)``.  Three rules:
+carry the period axis first: ``(n_periods, batch, ...)``, plus bare
+top-level tensors (``enc_out``) whose slot axis is 0.  Three rules:
 
 1. **Slot addressing.**  Inside the per-layer loop a leaf is
    ``(batch, ...)``; :func:`take_row` returns one slot's row as a size-1
@@ -11,13 +13,14 @@ carry the period axis first: ``(n_periods, batch, ...)``.  Three rules:
    needs ``put_row`` to write the row back; in place, nothing does).
 2. **Eviction** (:func:`clear_slot`): ring parts mark the slot empty
    (``slot_pos = -1``; payload bytes stay and position masking makes
-   them unreachable); every other part (SSM conv carries and state)
-   zeroes the slot's row: zero IS its empty state.
+   them unreachable); every other part (SSM conv carries and state,
+   ``enc_out``) zeroes the slot's row: zero IS its empty state.
 3. **Decode-step advancement** under one ``active`` predicate: ring KV
    is masked at the write site (``cache_write_decode(active=...)``) and
    updated in place; a recurrent part takes its new value on the active
    rows only (:func:`decode_advance`), since the port updates it in
-   place.  Read-only parts arrive with the enc-dec slice.
+   place; the cross-attention rings and ``enc_out``, written once at
+   admission, are not written by a decode step at all.
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ def decode_advance(active: Optional[torch.Tensor], tree: dict,
 def clear_slot(cache: dict, slot: int) -> dict:
     """Evict pool row ``slot`` from the whole cache (rule 2), in place."""
     for entry in cache.values():
+        if isinstance(entry, torch.Tensor):      # enc_out: slot on axis 0
+            entry[slot].zero_()
+            continue
         for tree in entry.values():
             if "slot_pos" in tree:
                 tree["slot_pos"][:, slot] = -1

@@ -2,10 +2,15 @@
 ``repro.serve.engine``).
 
 A fixed pool of ``batch`` slots shares one cache: ring KV for attention
-layers, conv carries and the fp32 state for SSM layers (the slot-state
-protocol of ``models.slotstate``; the engine does not know the family).
-Admission is chunked pooled prefill: a prompt streams into its slot's
-region in chunks of ``prefill_chunk`` tokens.  Decode is the fused loop
+layers, conv carries and the fp32 state for SSM layers, and for an
+encoder-decoder model the encoder output and a cross-attention ring per
+layer (the slot-state protocol of ``models.slotstate``; the engine does
+not know the family).  Admission is chunked pooled prefill: an
+encoder-decoder request's source frames (``submit(frames=)``) are
+encoded once into the slot (``Model.encode_slot``), a VLM request's
+patch prefix (``submit(patches=)``) streams in as embedding chunks, and
+the prompt's tokens stream into the slot's region in chunks of
+``prefill_chunk`` tokens.  Decode is the fused loop
 (:meth:`ServeEngine.decode_loop`): K steps of decode -> sample ->
 bookkeeping run back to back on the device with no host read inside;
 tokens and emit codes come back in one read per block (:meth:`_harvest`).
@@ -57,8 +62,8 @@ with no host branch) or poisons the slot's cache in place
 :meth:`ServeEngine.watchdog_report` reconciles host and device slot
 state.  ``serve.traffic`` replays seeded arrival traces through it.
 
-Not ported yet (they raise ``NotImplementedError``): mesh serving,
-speculation, and the enc-dec and VLM families, which the model refuses.
+Not ported yet (they raise ``NotImplementedError``): mesh serving and
+speculation.
 """
 
 from __future__ import annotations
@@ -67,9 +72,10 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.compat import resolve_device
+from repro_torch.compat import resolve_device, resolve_dtype
 from repro_torch.models.model import Model, build_model
 from repro_torch.serve import faults as fault_lib
 from repro_torch.serve.admission import (
@@ -118,13 +124,17 @@ class _Request:
     request_id: int
     prompt: List[int]
     max_new_tokens: int
+    frames: Optional[np.ndarray] = None    # enc-dec source embeddings
+    patches: Optional[np.ndarray] = None   # VLM patch-prefix embeddings
     submit_t: float = 0.0                  # engine-clock stamps
     deadline_s: Optional[float] = None     # absolute (engine clock)
     first_token_t: Optional[float] = None
 
     @property
     def trunk_len(self) -> int:
-        return len(self.prompt)
+        """Decoder-trunk length: VLM patch prefix + text tokens."""
+        n_pat = 0 if self.patches is None else self.patches.shape[0]
+        return n_pat + len(self.prompt)
 
 
 def _put(t: torch.Tensor, slot: int, value) -> None:
@@ -142,13 +152,16 @@ def _tree_to(tree: dict, device: torch.device) -> dict:
 class ServeEngine:
     """See module docstring.  ``decode_block`` is K, the number of decode
     steps fused between two host reads by :meth:`run` (1 = the per-token
-    pattern)."""
+    pattern).  ``enc_len``: the source positions each slot of an
+    encoder-decoder pool holds (default ``max_seq``; 0 for any other
+    model)."""
 
     def __init__(self, model: Model, params: dict, batch: int,
                  max_seq: int, temperature: float = 0.0, top_k: int = 0,
                  seed: int = 0, decode_block: int = 16,
                  prefill_chunk: int = 32,
-                 device=None, *, kv_format: Any = None,
+                 device=None, *, enc_len: Optional[int] = None,
+                 kv_format: Any = None,
                  weight_format: Optional[str] = None, packed: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  admission: Optional[AdmissionConfig] = None,
@@ -188,7 +201,11 @@ class ServeEngine:
         self.decode_block = max(int(decode_block), 1)
         self.prefill_chunk = max(
             1, min(int(prefill_chunk), model.min_cache_capacity(max_seq)))
-        self.cache = model.init_cache(batch, max_seq, self.device)
+        # an enc-dec pool holds every request's source at one fixed enc_len
+        self.enc_len = ((enc_len or max_seq)
+                        if model.cfg.is_encoder_decoder else 0)
+        self.cache = model.init_cache(batch, max_seq, self.device,
+                                      enc_len=self.enc_len)
         self.kv_stats = model.kv_cache_stats(self.cache)
         self.queue = AdmissionQueue(admission)
         # injectable clock (deadlines, TTFT): a virtual clock makes
@@ -201,6 +218,9 @@ class ServeEngine:
         parameters and the cache's tensors stay (reset in place).  The
         admission config survives; :meth:`set_admission` swaps it."""
         for entry in self.cache.values():
+            if isinstance(entry, torch.Tensor):      # enc_out
+                entry.zero_()
+                continue
             for tree in entry.values():      # ring KV or SSM carries/state
                 for name, leaf in tree.items():
                     if name == "slot_pos":
@@ -282,11 +302,19 @@ class ServeEngine:
 
     # -- request management -------------------------------------------- #
     def submit(self, prompt: List[int], max_new_tokens: int = 16,
-               deadline_ms: Optional[float] = None) -> int:
-        """Enqueue a request through the admission policy.  The prompt
-        must leave room for at least one generated token, and
-        ``max_new_tokens`` must be >= 1: admission always samples one
-        token from the prefill logits.
+               deadline_ms: Optional[float] = None, frames=None,
+               patches=None) -> int:
+        """Enqueue a request through the admission policy.  The trunk
+        (patch prefix + prompt) must leave room for at least one
+        generated token, and ``max_new_tokens`` must be >= 1: admission
+        always samples one token from the prefill logits.
+
+        ``frames`` (s_src, d_model): the source embeddings an
+        encoder-decoder model needs (s_src <= ``enc_len``), refused by
+        any other model.  ``patches`` (n_patches, d_model): a vision
+        frontend's patch prefix, refused without one.  Both are
+        array-likes, kept on the host until admission and rounded to the
+        compute dtype there.
 
         ``deadline_ms``: a deadline relative to now on the engine clock
         (default: the admission config's).  An expired queued request
@@ -296,23 +324,46 @@ class ServeEngine:
         Under a bounded queue, ``reject`` finishes the new request as
         ``shed``, ``shed_oldest`` sheds the oldest queued one, and
         ``block`` raises :class:`QueueFull` and consumes no id."""
+        cfg = self.model.cfg
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1 (got {max_new_tokens}): "
                 f"admission samples the first token from the prefill "
                 f"logits, so a 0-token generation does not exist")
+        if cfg.is_encoder_decoder:
+            if frames is None:
+                raise ValueError(
+                    f"{cfg.name} is encoder-decoder: submit() needs "
+                    f"frames=(s_src, d_model) source embeddings")
+            frames = np.asarray(frames)
+            if frames.ndim != 2 or frames.shape[0] < 1:
+                raise ValueError(f"frames must be (s_src, d_model); got "
+                                 f"{frames.shape}")
+            if frames.shape[0] > self.enc_len:
+                raise ValueError(
+                    f"source length {frames.shape[0]} > pool enc_len "
+                    f"{self.enc_len}: raise ServeEngine(enc_len=...)")
+        elif frames is not None:
+            raise ValueError(f"{cfg.name} is not encoder-decoder: "
+                             f"frames= is not accepted")
+        if patches is not None:
+            if cfg.frontend != "vision":
+                raise ValueError(f"{cfg.name} has no vision frontend: "
+                                 f"patches= is not accepted")
+            patches = np.asarray(patches)
         now = self._now()
         if deadline_ms is None:
             deadline_ms = self.queue.cfg.deadline_ms
         req = _Request(self._next_id, list(prompt), max_new_tokens,
-                       submit_t=now,
+                       frames=frames, patches=patches, submit_t=now,
                        deadline_s=(None if deadline_ms is None
                                    else now + deadline_ms / 1e3))
         if req.trunk_len >= self.max_seq:
             raise ValueError(
-                f"prompt length {req.trunk_len} >= max_seq {self.max_seq}: "
-                f"the cache holds max_seq-1 prompt tokens plus the decode "
-                f"stream; truncate the prompt or raise max_seq")
+                f"trunk length {req.trunk_len} (prompt + patch prefix) "
+                f">= max_seq {self.max_seq}: the cache holds max_seq-1 "
+                f"prompt tokens plus the decode stream; truncate the "
+                f"prompt or raise max_seq")
         if req.trunk_len < 1:
             raise ValueError("empty prompt")
         # offer before consuming the id: a block-policy QueueFull leaves
@@ -410,19 +461,43 @@ class ServeEngine:
         st["last_token"][slot] = tok
         return tok
 
+    def _embeddings(self, arr: np.ndarray) -> torch.Tensor:
+        """Host embeddings (n, d_model) -> (1, n, d_model) on the device
+        at the compute dtype (through float32, as the reference)."""
+        return torch.from_numpy(np.asarray(arr, np.float32)[None]).to(
+            self.device, resolve_dtype(self.model.cfg.compute_dtype))
+
     def _prefill_into_slot(self, slot: int, req: _Request) -> torch.Tensor:
-        """Evict the slot's previous tenant and stream the prompt into
-        its pool region in chunks; returns last-position logits (1, V)."""
+        """Evict the slot's previous tenant, encode the source frames once
+        (enc-dec), then stream the trunk into the slot's pool region in
+        chunks: the patch prefix as embedding chunks (VLM), then the
+        tokens.  Returns last-position logits (1, V)."""
         self.model.clear_slot(self.cache, slot)
         chunk = self.prefill_chunk
-        logits = None
+        if req.frames is not None:
+            self.model.encode_slot(self.params, self.cache,
+                                   self._embeddings(req.frames), slot,
+                                   req.frames.shape[0])
+        offset, logits = 0, None
+        if req.patches is not None:
+            n_pat = req.patches.shape[0]
+            zeros = torch.zeros(chunk, dtype=torch.int32, device=self.device)
+            for off in range(0, n_pat, chunk):
+                part = req.patches[off:off + chunk]
+                padded = np.zeros((chunk, part.shape[1]), np.float32)
+                padded[:len(part)] = part
+                logits = self.model.prefill_chunk(
+                    self.params, self.cache, zeros, slot, off, len(part),
+                    embeds=self._embeddings(padded))
+            offset = n_pat
         for off in range(0, len(req.prompt), chunk):
             part = req.prompt[off:off + chunk]
             valid = len(part)
             tokens = torch.tensor(part + [0] * (chunk - valid),
                                   dtype=torch.int32, device=self.device)
             logits = self.model.prefill_chunk(self.params, self.cache,
-                                              tokens, slot, off, valid)
+                                              tokens, slot, offset + off,
+                                              valid)
         return logits
 
     def _admit(self) -> None:

@@ -60,20 +60,29 @@ CACHE_FAULTS = ("e8m0_overflow", "kv_bitflip", "state_inf")
 FAULT_KINDS = tuple(LOGITS_FAULTS) + CACHE_FAULTS
 
 
+def _entries(cache: dict) -> Iterator[Tuple[str, dict]]:
+    """The layer entries of a slot-state cache in sorted order (the
+    reference's pytree order); a bare top-level tensor (``enc_out``) is
+    no layer entry."""
+    for name in sorted(cache):
+        if isinstance(cache[name], dict):
+            yield name, cache[name]
+
+
 def _ring_parts(cache: dict) -> Iterator[Tuple[str, str, dict]]:
     """``(entry, part, tree)`` for every ring part (has a ``slot_pos``
-    leaf) of a slot-state cache, self-attention KV first, entries in
-    sorted order (the reference's pytree order)."""
+    leaf) of a slot-state cache, self-attention KV first, then the
+    cross-attention rings."""
     for pref in (lambda p: p == "kv", lambda p: p != "kv"):
-        for name in sorted(cache):
-            for part, tree in cache[name].items():
+        for name, entry in _entries(cache):
+            for part, tree in entry.items():
                 if "slot_pos" in tree and pref(part):
                     yield name, part, tree
 
 
 def _recurrent_parts(cache: dict) -> Iterator[Tuple[str, str, dict]]:
-    for name in sorted(cache):
-        for part, tree in cache[name].items():
+    for name, entry in _entries(cache):
+        for part, tree in entry.items():
             if "slot_pos" not in tree:
                 yield name, part, tree
 

@@ -43,7 +43,10 @@ sampler (``serve.prng``, ``serve.sampler``): threefry draws and
 uniforms bit-identical on card and CPU, gumbel values within atol 2e-6
 (``log`` may differ by an ulp between the two), sampled tokens equal;
 the gemma2 / gemma-2b reduced engines (fp32, TF32 off) give the CPU's
-streams, greedy and sampled.
+streams, greedy and sampled; so do the seamless and internvl2 reduced
+engines, whose cross-attention decode (query position 2^30 over a ring
+with a tail of empty slots) and non-causal head_dim-64 attention are
+held to the plain versions at seamless's full-width shapes.
 """
 
 import dataclasses
@@ -1149,3 +1152,96 @@ def test_arming_and_cancel_make_no_sync(cuda):
     res = {r.request_id: r.status for r in eng.results}
     assert res == {ids[0]: "faulted", ids[1]: "shed", ids[3]: "faulted"}
     assert eng.slot_req[2] is not None and eng.accounting()["balanced"]
+
+
+# --------------------------------------------------------------------- #
+# the encoder-decoder and VLM paths: cross-attention decode at query
+# position 2^30, non-causal flash_attention at head_dim 64, engines
+# --------------------------------------------------------------------- #
+
+def _cross_ring(seed, b, S, h, d, src_lens):
+    """q (b, 1, h, d) bf16 and a cross ring (b, S, h, d) in fp32 whose
+    row r holds source positions 0..src_lens[r]-1, then slot_pos -1."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
+               for shape in ((b, 1, h, d), (b, S, h, d), (b, S, h, d)))
+    sp = torch.full((b, S), -1, dtype=torch.int32, device="cuda")
+    for r, n in enumerate(src_lens):
+        sp[r, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    return q.to(BF16), k, v, sp
+
+
+@pytest.mark.parametrize("fmt", [None, "float8_e4m3fn", "float4_e2m1fn"])
+def test_cross_attention_decode_at_far_position(cuda, fmt):
+    """seamless-m4t-medium's cross-attention decode: b 8, a ring of 1024
+    source slots, hq = hkv = 16, d 64, query position 2^30 (every
+    written slot visible), sources of 600..1000 frames (a tail of
+    slot_pos -1), bf16, dense and quantized."""
+    q, k, v, sp = _cross_ring(64, 8, 1024, 16, 64,
+                              np.linspace(600, 1000, 8).astype(int))
+    pos = torch.full((8,), 2 ** 30, dtype=torch.int32, device="cuda")
+    if fmt is None:
+        _check(q, k.to(BF16), v.to(BF16), sp, pos)
+        return
+    kv = {"slot_pos": sp}
+    for name, x in (("k", k), ("v", v)):
+        kv[f"{name}_q"], kv[f"{name}_s"] = attn.quantize_kv(x, fmt)
+    got = flash_decode_quant(q, kv, pos, fmt=fmt)
+    torch.cuda.synchronize()
+    want = flash_decode_quant_plain(q, kv, pos, fmt=fmt)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[BF16])
+
+
+@pytest.mark.parametrize("sq,skv", [(1000, 1000), (16, 1000), (600, 1024)],
+                         ids=["encoder", "cross_prompt", "cross_padded"])
+def test_flash_attention_non_causal_d64(cuda, sq, skv):
+    """seamless's whole-sequence attention, bf16, 16 heads of 64,
+    non-causal: the encoder (sq = skv = 1000, off the 128-row tile) and
+    the decoder's cross-attention (a 16-token prompt, or 600 queries,
+    over a source of 1000 / 1024 keys)."""
+    _check_fa(*_fa_inputs(sq + skv, 2, sq, skv, 16, 16, 64, BF16),
+              causal=False)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-2b"])
+def test_encdec_and_vlm_engines_card_match_cpu(cuda, arch):
+    """seamless / internvl2 reduced (2 decoder layers; seamless 2 encoder
+    layers), fp32, TF32 off: two requests with their 9 frames or 5
+    patches, greedy, on the card and the CPU: the same streams, and the
+    card's decode kernel launched once a layer a step (twice for
+    seamless: self and cross).  The card's second fused block runs under
+    ``set_sync_debug_mode("error")``: the cross-attention adds no host
+    synchronisation."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(7)
+    modal = ({"frames": rng.randn(9, cfg.d_model).astype(np.float32) * 0.02}
+             if cfg.is_encoder_decoder else
+             {"patches": rng.randn(5, cfg.d_model).astype(np.float32) * 0.02})
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(model, params, batch=2, max_seq=64, decode_block=4,
+                          prefill_chunk=8, device=dev)
+        for prompt in ([1, 2, 3, 4, 5, 6, 7], [9, 8, 7]):
+            eng.submit(prompt, max_new_tokens=13, **modal)
+        before = flash_decode.launches
+        eng.decode_loop()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                toks, emits = eng._decode_block(4)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            eng.decode_steps += 4
+            eng._harvest(toks, emits)
+        res = eng.run()
+        per_step = cfg.n_layers * (2 if cfg.is_encoder_decoder else 1)
+        assert flash_decode.launches - before == (
+            per_step * eng.decode_steps if dev == "cuda" else 0)
+        streams[dev] = [(r.status, r.tokens) for r in res]
+    assert streams["cuda"] == streams["cpu"]
+    assert all(s == "ok" and len(t) == 13 for s, t in streams["cuda"])

@@ -133,6 +133,24 @@ def test_robustness_and_moe_modules_are_checked():
         assert get_config(arch).name == arch
 
 
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-2b"])
+def test_encdec_and_vlm_configs_are_checked(no_card, arch):
+    """The two configs are among the files the import check reads, the
+    registry serves them, and their engines
+    refuse to start without a card when no device is named."""
+    module = {"seamless-m4t-medium": "seamless_m4t_medium",
+              "internvl2-2b": "internvl2_2b"}[arch]
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert f"src/repro_torch/configs/{module}.py" in names
+    cfg = get_config(arch)
+    assert cfg.name == arch and (cfg.is_encoder_decoder
+                                 or cfg.frontend == "vision")
+    model = build_model(cfg.reduced())
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params, batch=1, max_seq=16)
+
+
 def test_faults_write_in_place_with_no_host_fallback():
     """The cache poisoners write the slot's leaves where they live (here
     the meta device, which holds no data to copy to the host): no

@@ -21,8 +21,9 @@ reference's tests pin, on the port:
 * the traces are token for token the reference's, and a replay under
   the virtual clock gives the reference's report field for field.
 
-The enc-dec and VLM families and the speculative bitflip test of the
-reference's file arrive with their slices.
+The enc-dec and VLM rows run in ``tests/test_torch_encdec.py`` and
+``tests/test_torch_vlm.py``; the speculative bitflip test of the
+reference's file arrives with its slice.
 """
 
 import dataclasses
