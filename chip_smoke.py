@@ -124,12 +124,13 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    8192^3, each output held to the plain version; then, per size, the
    port's Tab VII: both kernels' ms and TFLOP/s beside ``torch.matmul``
    in bf16 over the weight dequantized beforehand (a yardstick);
-2d. full-width mamba2-2.7b (64 layers, d_model 2560, 80 SSD heads,
-   ssm_state 128, vocab 50280, bf16, seeded random weights) through
+2d. mamba2-2.7b at full width cut to ``CUT_LAYERS`` layers (of 64;
+   d_model 2560, 80 SSD heads, ssm_state 128, vocab 50280, bf16,
+   seeded random weights) through
    ``ServeEngine.run``: 8 requests x 512-token prompts x 64 new tokens,
    batch 8, max_seq 1024, prefill_chunk 256, decode_block 16.  Every
    request must end ``ok`` with 64 tokens, ``ssd_scan`` must have
-   launched once per prefill chunk per layer (8 x 2 x 64 = 1024) and its
+   launched once per prefill chunk per layer (8 x 2 x n_layers) and its
    plain version never; the slot-state bytes and the profiled decode
    block are printed as for dense, then one more admission of the 8
    prompts (and a decode step), profiled: its device time and
@@ -145,26 +146,28 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    (one per layer), its plain version never.  Wall and profiled device
    times, prefill tokens/s, ms per decode step, peak memory and
    flash_attention's device ms per call are printed;
-2f. full-depth gemma2-2b (26 layers, d_model 2304, 8 q-heads over 4 KV
-   heads of 256, d_ff 9216, vocab 256000, tied, bf16, seeded weights)
+2f. gemma2-2b at full width cut to ``CUT_LAYERS`` layers (of 26;
+   local / global in turn; d_model 2304, 8 q-heads over 4 KV heads of
+   256, d_ff 9216, vocab 256000, tied, bf16, seeded weights)
    through ``ServeEngine.run``: batch 8, max_seq 4608 (rings of 4096
    slots on the local layers, 4608 on the global ones), 2 prompts of
    4200 tokens and 6 of 256 x 64 new tokens, prefill chunks of 256, so
    the local rings wrap in the chunk writes and in decode.  Served with
-   dense KV (``flash_decode`` exactly 26 launches a decode step), then
-   with fp4 KV on the local layers and fp8 on the global ones
-   (``flash_decode_quant`` 26 a step); the other kernel and both plain
+   dense KV (``flash_decode`` exactly n_layers launches a decode step),
+   then with fp4 KV on the local layers and fp8 on the global ones
+   (``flash_decode_quant`` n_layers a step); the other kernel and both plain
    versions never; each kernel on both ring kinds of the engine's pool
    (window 4096 and softcap 50 on the local ring) held to its plain
    version (case g).  The unembed (the tied table cast to fp32 every
    call) profiled alone.  Then ``Model.forward`` and ``Model.prefill``
-   of 2 x 4608 tokens: ``flash_attention`` exactly 26 launches each,
+   of 2 x 4608 tokens: ``flash_attention`` exactly n_layers launches each,
    its plain version never, the prefill's last logits within atol 1e-3
    of the forward's; and the kernel against its plain version at that
    shape (window 4096, softcap 50, bf16 atol 2e-2).  Phase 2's metrics
    are printed for each run;
-2g. qwen2.5-3b, llama3.2-3b and gemma-2b at full width, one after the
-   other: greedy, batch 8, 8 x 256-token prompts x 64 new tokens,
+2g. qwen2.5-3b, llama3.2-3b and gemma-2b at full width cut to
+   ``CUT_LAYERS`` layers, one after the other: greedy, batch 8, 8 x
+   256-token prompts x 64 new tokens,
    max_seq 1024, prefill chunks of 256; ``flash_decode`` exactly
    ``n_layers`` launches a decode step, case (g).  Then gptneox-1b
    sampled (temperature 0.8, top_k 8, seed 3) with phase 2's traffic:
@@ -194,22 +197,40 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    balanced, the watchdog clean; a ``poisson_trace`` replayed under the
    virtual clock through a queue of 4 that rejects, twice, with the
    same report;
-2k. seamless-m4t-medium at full depth (12 encoder and 12 decoder layers,
-   d_model 1024, 16 heads of 64, vocab 256206, bf16, seeded weights),
+2k. seamless-m4t-medium at full width cut to ``CUT_LAYERS`` encoder
+   and ``CUT_LAYERS`` decoder layers (of 12 and 12; d_model 1024, 16
+   heads of 64, vocab 256206, bf16, seeded weights),
    batch 8, max_seq and enc_len 1024: 8 requests of 600..1000 source
    frames + 16-token prompts x 64 new tokens, served with dense, fp8 and
    fp4 KV (the cross rings quantized too); ``flash_decode`` (or
-   ``flash_decode_quant``) exactly 24 launches a decode step (self and
-   cross), the other kernel and every plain version never; case (g) on
-   the self and the cross ring; ``cross_kv_bytes``; the encode a request
-   (wall and profiled); then forward and prefill of 8 x 1024 frames + 8 x
-   1024 tokens (36 ``flash_attention`` launches a call) and 16 decode
-   steps;
+   ``flash_decode_quant``) exactly 2 x n_layers launches a decode step
+   (self and cross), the other kernel and every plain version never;
+   case (g) on the self and the cross ring; ``cross_kv_bytes``; the
+   encode a request (wall and profiled); then forward and prefill of 8 x
+   1024 frames + 8 x 1024 tokens (3 x n_layers ``flash_attention``
+   launches a call) and 16 decode steps;
 2l. internvl2-2b at full depth (24 layers, d_model 2048, 16 q-heads over 8
    KV heads of 128, vocab 92553, bf16): 8 requests of 256 patches + 256
    tokens x 64 new tokens in 256-token chunks, ``flash_decode`` exactly
    24 launches a decode step; forward and prefill of 8 x (256 patches +
    1792 tokens), 24 ``flash_attention`` launches a call;
+2m. speculative serving at full width, bf16, seeded weights, batch 8,
+   max_seq 1024, prefill chunks of 256, 8 period-3 cyclic 256-token
+   prompts (a phase a request) x 64 new tokens: gptneox-1b with n-gram
+   drafting (``SpecConfig()``: 4 drafts, a table of 512) over dense and
+   over fp8 KV, and drafting for itself (3 drafts); mamba2-2.7b at full
+   depth with n-gram drafting; each beside the same traffic without
+   speculation.  Decode tok/s, blocks, ``mean_accepted_len``, wall and
+   profiled device ms a block, kernels a block, idle share, and per
+   request the first index where the speculative stream leaves the
+   non-speculative one (reported, not gated: verify reads through the
+   plain attention, which rounds p to bf16, decode through
+   ``flash_decode``).  Gates: every request ``ok`` with 64 tokens; the
+   n-gram target launches neither decode kernel; the self-draft run
+   ``flash_decode`` exactly 16 x 3 times a block; mamba2's admission
+   ``ssd_scan`` exactly 8 x 64 times; no plain version called; one
+   speculative block (fp8 n-gram, and self-draft) under
+   ``set_sync_debug_mode("error")``;
 3. the dense path on the card and on the CPU in fp32 with TF32 off, full
    width, 2 layers, the same seeded weights: 2 requests x 32-token
    prompts x 16 new tokens, decode_block 7.  Greedy streams must be
@@ -249,6 +270,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    dense KV (atol 1e-3 quantized), ``enc_out`` within atol = rtol 1e-5,
    cross rings equal (quantized bytes but for rounding-boundary flips,
    at most 1 in 1000);
+3h. speculative serving the same way (fp32, TF32 off), 2 cyclic 32-token
+   prompts x 24 new tokens: gptneox-1b at full width cut to 2 layers
+   (dense and fp4 KV; n-gram, and scripted ``draft_fn`` drafts of the
+   card's non-speculative stream, accept-all and reject-all),
+   mamba2-2.7b cut to 2 layers and jamba-v0.1-52b reduced at capacity
+   factor 8.0 (n-gram): the speculative streams identical on card and
+   CPU and to the card's non-speculative ones, ``spec_report`` equal on
+   card and CPU;
 4. the probe suite ``repro_torch.launch.characterize`` on the card at the
    reference example's sizes, with every probe kernel's launch count and
    every plain version's call count set to 0 just before and read just
@@ -306,6 +335,12 @@ FORMATS = ("float8_e4m3fn", "float8_e5m2", "float6_e2m3fn",
 TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
 COLD_BYTES = 120e6          # input sets cycled per timing: > the 50 MB L2
+# the depth phases 2d (mamba2-2.7b, full: 64), 2f (gemma2-2b, 26), 2g
+# (qwen2.5-3b, llama3.2-3b, gemma-2b: 36, 28, 18) and 2k (seamless: 12
+# encoder and 12 decoder layers) are cut to, so that the whole run,
+# speculation (2m, 3h) included, stays well inside its time limit on a
+# slow host; 2m serves mamba2-2.7b at full depth
+CUT_LAYERS = 8
 
 
 def log(msg: str) -> None:
@@ -1677,16 +1712,16 @@ def phase2c_gemm_path():
 
 
 def phase2d_mamba2(prompts):
-    """Full-width mamba2-2.7b through ``ServeEngine.run``: every prefill
-    chunk of every layer launches ``ssd_scan`` (8 requests x 2 chunks x
-    64 layers), its plain version never runs; decode is the plain-torch
-    recurrence."""
+    """mamba2-2.7b at full width cut to ``CUT_LAYERS`` layers through
+    ``ServeEngine.run``: every prefill chunk of every layer launches
+    ``ssd_scan`` (8 requests x 2 chunks x n_layers), its plain version
+    never runs; decode is the plain-torch recurrence."""
     from repro_torch.bridge import flatten
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.models.model import build_model
     from repro_torch.serve import ServeEngine
-    cfg = get_config("mamba2-2.7b")
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), n_layers=CUT_LAYERS)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
@@ -1998,27 +2033,28 @@ def _serve_dense(cfg, params, prompts, label, max_seq, prefill_chunk,
 
 
 def phase2f_gemma2(hbm, peak_bf16):
-    """gemma2-2b at full width and depth (26 layers, d_model 2304, 8 x 256
-    q-heads over 4 KV heads, d_ff 9216, vocab 256000, tied), bf16, seeded
-    weights.  Serving, batch 8, max_seq 4608 (the local layers' rings
-    hold 4096 slots, the global layers' 4608): 2 prompts of 4200 tokens
-    and 6 of 256, 64 new tokens each, prefill chunks of 256; the long
-    prompts wrap the local rings in the chunk writes and in decode.
-    Served with dense KV (``flash_decode``: 26 launches a step), then
-    with fp4 KV on the local layers and fp8 on the global ones
-    (``flash_decode_quant``: 26 a step).  Then a whole-sequence forward
-    and prefill of 2 x 4608 tokens: ``flash_attention`` 26 launches each,
-    its plain version never, the prefill's last logits within atol 1e-3
-    of the forward's; and the kernel against its plain version at that
-    shape (window 4096, softcap 50).  The unembed (the tied table cast to
-    fp32 every call, as the reference does) is profiled alone."""
+    """gemma2-2b at full width cut to ``CUT_LAYERS`` layers (of 26;
+    d_model 2304, 8 x 256 q-heads over 4 KV heads, d_ff 9216, vocab
+    256000, tied), bf16, seeded weights.  Serving, batch 8, max_seq 4608
+    (the local layers' rings hold 4096 slots, the global layers' 4608): 2
+    prompts of 4200 tokens and 6 of 256, 64 new tokens each, prefill
+    chunks of 256; the long prompts wrap the local rings in the chunk
+    writes and in decode.  Served with dense KV (``flash_decode``:
+    n_layers launches a step), then with fp4 KV on the local layers and
+    fp8 on the global ones (``flash_decode_quant``: n_layers a step).
+    Then a whole-sequence forward and prefill of 2 x 4608 tokens:
+    ``flash_attention`` n_layers launches each, its plain version never,
+    the prefill's last logits within atol 1e-3 of the forward's; and the
+    kernel against its plain version at that shape (window 4096, softcap
+    50).  The unembed (the tied table cast to fp32 every call, as the
+    reference does) is profiled alone."""
     from repro_torch.bridge import flatten
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
     from repro_torch.models.layers import unembed
     from repro_torch.models.model import build_model
-    cfg = get_config("gemma2-2b")
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=CUT_LAYERS)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
@@ -2128,10 +2164,11 @@ def phase2f_gemma2(hbm, peak_bf16):
 
 
 def phase2g_dense_family(greedy_gptneox):
-    """qwen2.5-3b, llama3.2-3b and gemma-2b at full width, bf16, seeded
-    weights, one after the other (each freed before the next is built):
-    greedy, batch 8, 8 x 256-token prompts x 64 new tokens, max_seq
-    1024, prefill chunks of 256; ``flash_decode`` exactly ``n_layers``
+    """qwen2.5-3b, llama3.2-3b and gemma-2b at full width cut to
+    ``CUT_LAYERS`` layers, bf16, seeded weights, one after the other
+    (each freed before the next is built): greedy, batch 8, 8 x
+    256-token prompts x 64 new tokens, max_seq 1024, prefill chunks of
+    256; ``flash_decode`` exactly ``n_layers``
     launches a decode step, then case (g).  Then gptneox-1b sampled
     (temperature 0.8, top_k 8, seed 3) beside phase 2's greedy run: the
     sampler's kernels and device time a step."""
@@ -2140,7 +2177,7 @@ def phase2g_dense_family(greedy_gptneox):
     from repro_torch.models.model import build_model
     out = {}
     for arch in ("qwen2.5-3b", "llama3.2-3b", "gemma-2b"):
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch), n_layers=CUT_LAYERS)
         params = build_model(cfg).init(
             torch.Generator(device="cuda").manual_seed(0), "cuda")
         log(f"[{arch}] {cfg.n_layers} layers, hq {cfg.n_heads} / hkv "
@@ -2608,26 +2645,29 @@ def _modal_whole_sequence(label, model, params, batch, fa_per_call,
 
 
 def phase2k_seamless():
-    """seamless-m4t-medium at full width and depth (12 encoder and 12
-    decoder layers, d_model 1024, 16 heads of 64, d_ff 4096, GELU,
+    """seamless-m4t-medium at full width cut to ``CUT_LAYERS`` encoder and
+    ``CUT_LAYERS`` decoder layers (of 12 and 12; d_model 1024, 16 heads
+    of 64, d_ff 4096, GELU,
     vocab 256206), bf16, seeded weights.  Served (batch 8, max_seq 1024,
     enc_len 1024, decode blocks of 16) with dense KV, then fp8 and fp4
     KV (the cross rings quantized too): 8 requests, each a source of
     600..1000 frames (lengths and N(0, 0.02^2) frames from
     ``default_rng(2)``), a 16-token prompt and 64 new tokens;
     ``flash_decode`` (or
-    ``flash_decode_quant``) exactly 24 launches a decode step (self and
-    cross), the other kernel and both plain versions never; case (g) on
-    the self and the cross ring.  The encode a request, wall and
-    profiled (12 ``flash_attention`` launches each).  Then forward and
-    prefill of 8 x 1024 frames + 8 x 1024 tokens: 36 ``flash_attention``
-    launches a call (12 encoder, 12 self, 12 cross), and 16 decode
-    steps."""
+    ``flash_decode_quant``) exactly 2 x n_layers launches a decode step
+    (self and cross), the other kernel and both plain versions never;
+    case (g) on the self and the cross ring.  The encode a request, wall
+    and profiled (one ``flash_attention`` launch an encoder layer).  Then
+    forward and prefill of 8 x 1024 frames + 8 x 1024 tokens: a
+    ``flash_attention`` launch an encoder layer and two a decoder layer
+    (self, cross) a call, and 16 decode steps."""
     from repro_torch.bridge import flatten
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.model import build_model, make_batch
-    cfg = get_config("seamless-m4t-medium")
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium"),
+                              n_layers=CUT_LAYERS,
+                              n_encoder_layers=CUT_LAYERS)
     model = build_model(cfg)
     params, init_s = _timed(lambda: model.init(
         torch.Generator(device="cuda").manual_seed(0), "cuda"))
@@ -3234,6 +3274,305 @@ def phase3g_modal_parity():
         del model3, params3
 
 
+# --------------------------------------------------------------------- #
+# speculative serving (2m at full width, 3h card against CPU)
+# --------------------------------------------------------------------- #
+
+def _cyclic_prompts(n: int = 8, length: int = 256):
+    """Period-3 cyclic prompts with a per-request phase
+    (``benchmarks/serve_spec.py``'s traffic)."""
+    return [[1 + (i + j) % 3 for j in range(length)] for i in range(n)]
+
+
+def _first_diff(a, b):
+    """Index of the first differing token of two streams, or
+    "identical"."""
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if i is None and len(a) != len(b):
+        i = min(len(a), len(b))
+    return "identical" if i is None else i
+
+
+def _spec_leg(eng, prompts, label, counters):
+    """Warm up, then serve ``prompts`` x 64 new tokens with every
+    (wrapper, expected launches (decode steps, D+1)) of ``counters`` set
+    to 0 just before and checked just after; every request must end
+    ``ok`` with 64 tokens.  Then one more run of the same traffic: after
+    its admission and a first dispatch, one dispatch of 4 blocks (16
+    steps without speculation) timed on the wall clock and the next one
+    profiled.  Returns the metrics and the streams."""
+    spec = eng.spec
+    s = spec.draft_tokens + 1 if spec else 1
+    eng.submit(list(range(1, 41)), max_new_tokens=4)         # warm-up
+    eng.run()
+    eng.reset()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=64)
+    for wrapper, _ in counters:
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    t_run = time.monotonic()
+    results = eng.run()
+    torch.cuda.synchronize()
+    launched = {w.__name__: w.launches for w, _ in counters}
+    bad = [(r.request_id, r.status, len(r.tokens)) for r in results
+           if r.status != "ok" or len(r.tokens) != 64]
+    if len(results) != len(prompts) or bad:
+        raise AssertionError(f"{label}: not ok: {bad}")
+    vocab = eng.model.cfg.vocab_size
+    if not all(0 <= t < vocab for r in results for t in r.tokens):
+        raise AssertionError(f"{label}: token id out of range")
+    steps = eng.decode_steps
+    for wrapper, want in counters:
+        if launched[wrapper.__name__] != want(steps, s):
+            raise AssertionError(
+                f"{label}: {wrapper.__name__} launched "
+                f"{launched[wrapper.__name__]} times; expected "
+                f"{want(steps, s)} ({steps} decode positions)")
+    decode_s = (max(r.finish_t for r in results)
+                - max(r.first_token_t for r in results))
+    blocks = steps // s
+    rep = eng.spec_report()
+    out = {"streams": [r.tokens for r in results], "launches": launched,
+           "tok_s": sum(len(r.tokens) - 1 for r in results) / decode_s,
+           "block_ms": 1e3 * decode_s / blocks,
+           "prefill_s": max(r.first_token_t for r in results) - t_run,
+           "mean_accepted_len": rep["mean_accepted_len"]}
+    units = 4 if spec else 16                  # blocks, or decode steps
+    eng.reset()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=64)
+    eng.decode_loop(units * s)                 # admission + first dispatch
+    _, wall = _timed(lambda: eng.decode_loop(units * s))
+    busy, _, n_kern, top, _ = profile_fn(
+        lambda: eng.decode_loop(units * s), "flash_decode")
+    out.update(wall_block_ms=1e3 * wall / units,
+               busy_block_ms=busy / units, kernels_block=n_kern / units,
+               idle_share=1 - busy / (1e3 * wall))
+    unit = "block" if spec else "step"
+    log(f"[{label}] {len(results)} requests ok x 64 tokens: decode "
+        f"{out['tok_s']:.1f} tok/s, {blocks} {unit}s in {eng.dispatches} "
+        f"dispatches ({out['block_ms']:.2f} ms a {unit}), prefill "
+        f"{out['prefill_s']:.3f} s"
+        + (f", mean_accepted_len {rep['mean_accepted_len']:.4f} over "
+           f"{rep['blocks']} slot-blocks" if spec else "")
+        + f"; launches {launched}")
+    log(f"[{label}] a {units}-{unit} dispatch: "
+        f"{out['wall_block_ms']:.2f} ms wall and "
+        f"{out['busy_block_ms']:.3f} ms device busy a {unit} "
+        f"({out['kernels_block']:.0f} kernels), idle share "
+        f"{out['idle_share']:.3f}; top {top}")
+    return out
+
+
+def _no_sync_block(eng, prompts, label):
+    """Admission and a first dispatch, then one speculative block under
+    ``set_sync_debug_mode("error")``; the run then goes on to its end."""
+    eng.reset()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=64)
+    eng.decode_loop(eng.spec.draft_tokens + 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, emits = eng._spec_block()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.decode_steps += eng.spec.draft_tokens + 1
+    eng._harvest(toks.T, emits.T)
+    res = eng.run()
+    if not all(r.status == "ok" and len(r.tokens) == 64 for r in res):
+        raise AssertionError(f"{label}: after the block: "
+                             f"{[(r.status, len(r.tokens)) for r in res]}")
+    log(f"[{label}] one speculative block under "
+        f"set_sync_debug_mode('error'): no synchronisation; the run went "
+        f"on, every request ok")
+
+
+def phase2m_speculation():
+    """Speculative serving at full width, bf16, seeded weights: gptneox-1b
+    and mamba2-2.7b (full depth), batch 8, max_seq 1024, prefill chunks
+    of 256, 8 cyclic 256-token prompts x 64 new tokens, each speculative
+    run beside the non-speculative run of the same traffic."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_plain)
+    from repro_torch.kernels.flash_decode_quant import (
+        flash_decode_quant, flash_decode_quant_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine, SpecConfig
+    plains = (flash_decode_plain, flash_decode_quant_plain, ssd_scan_plain,
+              flash_attention_plain)
+    for p in plains:
+        p.calls = 0
+    prompts = _cyclic_prompts()
+    none = (lambda steps, s: 0)
+    out = {}
+
+    cfg = get_config("gptneox-1b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    settings = dict(batch=8, max_seq=1024, decode_block=16,
+                    prefill_chunk=256, device="cuda")
+    for kv in (None, "float8_e4m3fn"):
+        name = "dense" if kv is None else "fp8"
+        kernel = flash_decode if kv is None else flash_decode_quant
+        base = _spec_leg(
+            ServeEngine(model, params, kv_format=kv, **settings), prompts,
+            f"spec gptneox {name} KV, no speculation",
+            [(kernel, lambda steps, s: cfg.n_layers * steps)])
+        eng = ServeEngine(model, params, kv_format=kv, spec=SpecConfig(),
+                          **settings)
+        got = _spec_leg(eng, prompts, f"spec gptneox {name} KV, n-gram",
+                        [(flash_decode, none), (flash_decode_quant, none)])
+        if kv is not None:
+            _no_sync_block(eng, prompts, f"spec gptneox {name} KV, n-gram")
+        out[f"gptneox {name} n-gram"] = (got, base)
+        del eng
+    eng = ServeEngine(model, params, spec=SpecConfig(
+        draft_tokens=3, draft_model=model, draft_params=params), **settings)
+    got = _spec_leg(eng, prompts, "spec gptneox dense KV, self-draft D 3",
+                    [(flash_decode,
+                      lambda steps, s: cfg.n_layers * 3 * (steps // s)),
+                     (flash_decode_quant, none)])
+    _no_sync_block(eng, prompts, "spec gptneox dense KV, self-draft D 3")
+    out["gptneox dense self-draft"] = (got, out["gptneox dense n-gram"][1])
+    del eng, params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("mamba2-2.7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    admission = (lambda steps, s: len(prompts) * cfg.n_layers)
+    base = _spec_leg(ServeEngine(model, params, **settings), prompts,
+                     "spec mamba2, no speculation", [(ssd_scan, admission)])
+    got = _spec_leg(ServeEngine(model, params, spec=SpecConfig(),
+                                **settings), prompts, "spec mamba2, n-gram",
+                    [(ssd_scan, admission)])
+    out["mamba2 n-gram"] = (got, base)
+    del params
+    torch.cuda.empty_cache()
+
+    called = {p.__name__: p.calls for p in plains}
+    if any(called.values()):
+        raise AssertionError(f"speculation: plain versions called {called}")
+    for label, (got, base) in out.items():
+        diffs = [_first_diff(a, b) for a, b in zip(got["streams"],
+                                                   base["streams"])]
+        log(f"[spec {label}] {got['tok_s']:.1f} tok/s against "
+            f"{base['tok_s']:.1f} without speculation; per request, the "
+            f"first index where the streams differ: {diffs}")
+    log(f"[spec] plain versions called: {called}")
+    return {label: {"launches": got["launches"], "tok_s": got["tok_s"],
+                    "base_tok_s": base["tok_s"],
+                    "mean_accepted_len": got["mean_accepted_len"]}
+            for label, (got, base) in out.items()}
+
+
+def _spec_parity(label, model3, params3, prompts3, make_spec, n_new=24,
+                 **kw):
+    """Serve ``prompts3`` x ``n_new`` speculating on the card and on the
+    CPU (``make_spec(device)`` gives each its SpecConfig), and without
+    speculation on the card: the three streams identical, the
+    ``spec_report`` the same on both devices."""
+    from repro_torch.serve import ServeEngine
+    got = {}
+    for dev, spec in (("cuda", None), ("cuda", True), ("cpu", True)):
+        eng = ServeEngine(model3, params3, batch=2, max_seq=64,
+                          decode_block=8, prefill_chunk=16, device=dev,
+                          spec=make_spec(dev) if spec else None, **kw)
+        for p in prompts3:
+            eng.submit(p, max_new_tokens=n_new)
+        streams = [(r.status, r.tokens) for r in eng.run()]
+        got[(dev, spec)] = (streams, eng.spec_report())
+    (card, rep_c), (cpu, rep_h) = got[("cuda", True)], got[("cpu", True)]
+    plain = got[("cuda", None)][0]
+    if not all(s == "ok" and len(t) == n_new for s, t in card):
+        raise AssertionError(f"{label}: {[(s, len(t)) for s, t in card]}")
+    if card != plain or card != cpu:
+        diffs = {other: [_first_diff(a, b) for (_, a), (_, b)
+                         in zip(card, streams)]
+                 for other, streams in (("the card without speculation",
+                                         plain), ("the CPU", cpu))}
+        raise AssertionError(f"{label}: first differing index against "
+                             f"{diffs}")
+    if rep_c != rep_h:
+        raise AssertionError(f"{label}: spec_report card {rep_c} != CPU "
+                             f"{rep_h}")
+    log(f"[{label}] speculative streams identical on card and CPU and to "
+        f"the card's non-speculative ones; spec_report {rep_c}")
+    return rep_c
+
+
+def phase3h_spec_parity(model3, params3):
+    """Speculative serving card against CPU, fp32, TF32 off: gptneox-1b
+    at full width cut to 2 layers (phase 3's model) with dense and fp4
+    KV, mamba2-2.7b cut the same way and jamba-v0.1-52b reduced at
+    capacity factor 8.0, n-gram drafting (3 drafts, a table of 64) on 2
+    cyclic 32-token prompts x 24 new tokens; on gptneox also a scripted
+    ``draft_fn`` that drafts the non-speculative stream (accept-all) and
+    one that never does (reject-all)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine, SpecConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prompts3 = _cyclic_prompts(2, 32)
+    ngram = (lambda dev: SpecConfig(draft_tokens=3, ngram_table=64))
+    for kv in (None, "float4_e2m1fn"):
+        _spec_parity(f"parity spec gptneox 2-layer fp32, "
+                     f"{kv or 'dense'} KV, n-gram", model3, params3,
+                     prompts3, ngram, kv_format=kv)
+
+    # scripted drafts: the oracle is the card's non-speculative stream
+    eng = ServeEngine(model3, params3, batch=2, max_seq=64, decode_block=8,
+                      prefill_chunk=16, device="cuda")
+    for p in prompts3:
+        eng.submit(p, max_new_tokens=24)
+    tbl = np.full((2, 64), -7, np.int32)
+    for slot, r in enumerate(eng.run()):
+        tbl[slot, 32:32 + len(r.tokens)] = r.tokens
+    vocab = model3.cfg.vocab_size
+
+    def scripted(accept):
+        def make(dev):
+            t = torch.from_numpy(tbl).to(dev)
+
+            def draft_fn(st):
+                q = (st["pos"][:, None] + 1 + torch.arange(
+                    3, dtype=torch.int32, device=dev)[None, :]).clamp_max(
+                        63).long()
+                right = t.gather(1, q)
+                return right if accept else (right + 1) % vocab
+            return SpecConfig(draft_tokens=3, ngram_table=64,
+                              draft_fn=draft_fn)
+        return make
+
+    for accept in (True, False):
+        rep = _spec_parity(f"parity spec gptneox 2-layer fp32, draft_fn "
+                           f"{'accept' if accept else 'reject'}-all",
+                           model3, params3, prompts3, scripted(accept))
+        if (rep["mean_accepted_len"] == 1.0) == accept:
+            raise AssertionError(f"scripted drafts: {rep}")
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), n_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    mamba = build_model(cfg)
+    _spec_parity("parity spec mamba2 2-layer fp32, n-gram", mamba,
+                 mamba.init(torch.Generator().manual_seed(0), "cpu"),
+                 prompts3, ngram)
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(),
+                              moe_capacity_factor=8.0)
+    jamba = build_model(cfg)
+    _spec_parity("parity spec jamba reduced fp32 cf 8.0, n-gram", jamba,
+                 jamba.init(torch.Generator().manual_seed(0), "cpu"),
+                 prompts3, ngram)
+
+
 def phase4_characterize():
     """``repro_torch.launch.characterize`` at the reference example's
     sizes, the counters set to 0 just before and read just after; then a
@@ -3371,6 +3710,8 @@ def main() -> int:
     stamp("2k")
     internvl2 = phase2l_internvl2()
     stamp("2l")
+    spec = phase2m_speculation()
+    stamp("2m")
     modal_paths = {
         "2k seamless dense serving": seamless["dense"]["launches"],
         "2k seamless float8_e4m3fn serving": seamless["float8_e4m3fn"][
@@ -3390,18 +3731,29 @@ def main() -> int:
                       **{f"2i {arch} serving": n
                          for arch, n in moe_models.items()},
                       **{k: v for k, v in modal_paths.items()
-                         if "float" not in k and "whole" not in k}}
+                         if "float" not in k and "whole" not in k},
+                      "2m gptneox-1b self-draft serving": spec[
+                          "gptneox dense self-draft"]["launches"][
+                              "flash_decode"],
+                      "2m gptneox-1b n-gram serving": spec[
+                          "gptneox dense n-gram"]["launches"][
+                              "flash_decode"]}
     for e in fdq_entries:
         e["paths"] = {"2b gptneox-1b serving": e["launches"],
                       "2h jamba serving": jamba["float8_e4m3fn"]["launches"],
                       **{k: v for k, v in modal_paths.items()
-                         if "float" in k}}
+                         if "float" in k},
+                      "2m gptneox-1b fp8 n-gram serving": spec[
+                          "gptneox fp8 n-gram"]["launches"][
+                              "flash_decode_quant"]}
     for e in ssd_entries:
         e["paths"] = {"2d mamba2 serving": e["launches"],
                       "2h jamba serving": jamba["dense"]["also_launches"][
                           "ssd_scan"],
                       "2h jamba whole sequence": jamba["whole"][
-                          "ssd_launches"]}
+                          "ssd_launches"],
+                      "2m mamba2 n-gram serving": spec["mamba2 n-gram"][
+                          "launches"]["ssd_scan"]}
     for e in fa_entries:
         e["paths"] = {"2e gptneox-1b whole sequence": e["launches"],
                       "2h jamba whole sequence": jamba["whole"][
@@ -3423,7 +3775,8 @@ def main() -> int:
     phase3e_dense_family_parity()
     phase3f_moe_parity()
     phase3g_modal_parity()
-    stamp("3-3g")
+    phase3h_spec_parity(model3, params3)
+    stamp("3-3h")
 
     # ---- 4: the probe suite -------------------------------------------- #
     counts = phase4_characterize()

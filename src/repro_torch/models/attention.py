@@ -12,7 +12,10 @@ e8m0 block scales (b, S, hkv, d/blk) instead of ``k``/``v``; K/V are
 quantized on write (:func:`quantize_kv`, plain torch ops, as the
 reference does it in XLA).  Visibility is computed from positions
 (``0 <= slot_pos <= q_pos``, and ``> q_pos - window`` for local layers),
-so one rule covers decode, chunked prefill and ring wrap-around.
+so one rule covers decode, chunked prefill and ring wrap-around.  The
+speculative commit writes per-row positions (:func:`cache_write_rows`);
+a draft model's rejected writes are undone by a pointer move
+(:func:`cache_rollback`).
 
 Unlike the reference, whose arrays are immutable, the write paths here
 update the cache tensors **in place** (``index_put_`` on pool rows) and
@@ -422,6 +425,50 @@ def cache_write_chunk(cache: dict, k: torch.Tensor, v: torch.Tensor,
     for name, new in _payload(cache, k, v, kv_format).items():
         pool = _raw(cache[name])
         pool[:, slots] = mask_rows(vmask, _raw(new), pool[:, slots])
+    return cache
+
+
+def cache_write_rows(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                     positions: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None, *,
+                     kv_format: Optional[str] = None) -> dict:
+    """Write (b, s, hkv, d) k/v at per-row absolute ``positions`` (b, s)
+    into the (ring) cache, in place: the speculative commit.  ``valid``
+    (b, s) masks rejected draft tails and inactive rows (masked entries
+    keep their contents and slot_pos).  Per row, positions must map to
+    distinct slots (s <= capacity).  A quantized cache encodes on the way
+    in."""
+    sp = cache["slot_pos"]
+    b, cap = sp.shape
+    rows = torch.arange(b, device=sp.device)[:, None]
+    slots = (positions % cap).long()
+    sp[rows, slots] = mask_rows(valid, positions.to(torch.int32),
+                                sp[rows, slots])
+    for name, new in _payload(cache, k, v, kv_format).items():
+        pool = _raw(cache[name])
+        pool[rows, slots] = mask_rows(valid, _raw(new), pool[rows, slots])
+    return cache
+
+
+def cache_rollback(cache: dict, positions: torch.Tensor,
+                   reject: torch.Tensor) -> dict:
+    """Invalidate rejected speculative writes, in place: a pointer move,
+    no payload traffic.  positions (b, s) were written; ``reject`` (b, s)
+    marks the writes to undo.  A slot is cleared (slot_pos -1) only while
+    it still holds the rejected position, so a slot overwritten since, or
+    never written (an inactive row), is left alone.  Takes a
+    period-stacked ``slot_pos`` (n_p, b, cap) too."""
+    sp = cache["slot_pos"]
+    slots = (positions % sp.shape[-1]).long()
+    rows = torch.arange(positions.shape[0], device=sp.device)[:, None]
+    if sp.dim() == 2:
+        cur = sp[rows, slots]                              # (b, s)
+        hit = reject & (cur == positions)
+        sp[rows, slots] = torch.where(hit, -1, cur)
+    else:
+        cur = sp[:, rows, slots]                           # (n_p, b, s)
+        hit = reject[None] & (cur == positions[None])
+        sp[:, rows, slots] = torch.where(hit, -1, cur)
     return cache
 
 

@@ -67,6 +67,24 @@ class Model:
         return tf.lm_encode_slot(params, cache, frames, slot, src_len,
                                  self.cfg)
 
+    # -- speculative decoding (serve.spec) ----------------------------- #
+    def verify_chunk(self, params: dict, cache: dict, tokens: torch.Tensor,
+                     positions: torch.Tensor):
+        """(logits (b, s, vocab) fp32, info) of ``s`` tentative tokens a
+        row, without writing the cache (``transformer.lm_verify_chunk``)."""
+        return tf.lm_verify_chunk(params, cache, tokens, positions,
+                                  self.cfg)
+
+    def commit_chunk(self, cache: dict, info: list, positions: torch.Tensor,
+                     e: torch.Tensor) -> dict:
+        """Write the first ``e`` verified positions a row, in place."""
+        return tf.lm_commit_chunk(cache, info, positions, e, self.cfg)
+
+    def rollback_chunk(self, cache: dict, positions: torch.Tensor,
+                       reject: torch.Tensor) -> dict:
+        """Invalidate rejected ring writes (a pointer move), in place."""
+        return tf.lm_rollback_chunk(cache, positions, reject)
+
     def clear_slot(self, cache: dict, slot: int) -> dict:
         return tf.clear_slot(cache, slot)
 

@@ -14,7 +14,10 @@ reference's arithmetic order; :func:`ssm_forward` and
 ``kernels.ssd_scan``, which takes this plain version for CPU
 tensors and launches the hand-written CUDA kernel for CUDA tensors.
 Decode (:func:`ssm_decode`) is the O(1)-state recurrence in plain torch;
-the reference has no kernel there either.
+the reference has no kernel there either.  The speculative verify
+(:func:`ssm_verify_chunk`) runs that recurrence over a block without
+writing, and the commit (:func:`ssm_commit_chunk`) replays it over the
+kept prefix.
 
 The slot's cache row is updated in place: the prefill writes the
 advanced conv carries and state into the row it is given (views into
@@ -287,6 +290,25 @@ def ssm_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
     return out
 
 
+def _conv_step(p: dict, sec: str, window: torch.Tensor) -> torch.Tensor:
+    """One position's depthwise conv of section ``sec`` over its window
+    (bt, k, c) of raw inputs, then SiLU: (bt, c).  The window and the
+    weight meet at their promoted dtype, as in the reference."""
+    w = p[f"conv_{sec}_w"]
+    dt = torch.promote_types(window.dtype, w.dtype)
+    return F.silu(torch.einsum("bkc,ck->bc", window.to(dt), w.to(dt))
+                  + p[f"conv_{sec}_b"])
+
+
+def _state_step(state: torch.Tensor, dt_a: torch.Tensor, xd: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """One step of the recurrence, S <- S * exp(dt * A) + (dt * x) outer
+    B, fp32: state (bt, h, p, n), dt_a (bt, h), xd (bt, h, p), b (bt, n).
+    Decode, the speculative verify and its commit all step through it."""
+    return (state * torch.exp(dt_a)[..., None, None]
+            + xd[..., None] * b[:, None, None, :])
+
+
 def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ArchConfig,
                active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token recurrence.  x (bt, 1, d_model); ``cache`` the layer's
@@ -298,24 +320,109 @@ def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ArchConfig,
     # conv over the k-1 carried raw inputs and this one, per section
     windows = {sec: torch.cat([cache[f"conv_{sec}"].to(r.dtype), r], dim=1)
                for sec, r in (("x", xr), ("b", br), ("c", cr))}
-
-    def conv(sec):
-        wdw, w = windows[sec], p[f"conv_{sec}_w"]
-        dt = torch.promote_types(wdw.dtype, w.dtype)
-        return F.silu(torch.einsum("bkc,ck->bc", wdw.to(dt), w.to(dt))
-                      + p[f"conv_{sec}_b"])[:, None, :]
-
-    xh = conv("x").reshape(bt, 1, h, pd)
-    b_, c_ = conv("b"), conv("c")
+    xh = _conv_step(p, "x", windows["x"])[:, None].reshape(bt, 1, h, pd)
+    b_ = _conv_step(p, "b", windows["b"])[:, None]
+    c_ = _conv_step(p, "c", windows["c"])[:, None]
     dt, dt_a = _discretize(p, dt_raw)
-    # S <- S * exp(dt * A) + (dt * x) outer B
     xd = (xh * dt[..., None]).float()[:, 0]                 # (bt, h, p)
-    decay = torch.exp(dt_a.float())[:, 0]                   # (bt, h)
-    state = (cache["state"] * decay[..., None, None]
-             + xd[..., None] * b_.float()[:, 0, None, None, :])
+    state = _state_step(cache["state"], dt_a.float()[:, 0], xd,
+                        b_.float()[:, 0])
     y = torch.einsum("bhpn,bn->bhp", state, c_.float()[:, 0])[:, None]
     out = _gated_out(p, y, xh, z, x.dtype, cfg)
     new = {f"conv_{sec}": wdw[:, 1:] for sec, wdw in windows.items()}
     new["state"] = state
     slotstate.decode_advance(active, cache, new)
     return out
+
+
+# --------------------------------------------------------------------- #
+# Speculative verify and commit (decode-exact)
+# --------------------------------------------------------------------- #
+
+def _conv_windows(f: torch.Tensor, s: int, k: int) -> list:
+    """f (bt, k-1+s, c) -> the ``s`` per-position conv windows, each
+    (bt, k, c) and contiguous as decode's: window j is rows [j, j+k) of
+    ``[carry | raw]``, the window :func:`ssm_decode` sees at step j."""
+    return [f[:, j:j + k].contiguous() for j in range(s)]
+
+
+def ssm_verify_chunk(p: dict, x: torch.Tensor, cache: dict, cfg: ArchConfig
+                     ) -> Tuple[torch.Tensor, dict]:
+    """Verify ``s`` drafted tokens through the SSD block in one pass,
+    reading the cache and writing nothing.
+
+    x (bt, s, d_model); ``cache`` the layer's pool (bt rows).  Position
+    j's output uses the state after j decode steps and the conv window
+    ending at j, both with :func:`ssm_decode`'s own ops: a sequential
+    fp32 scan (not :func:`ssd_chunked`, whose association differs) over
+    per-position windows of ``[carry | raw]`` (not ``causal_conv1d``,
+    whose zero left pad differs from the carried window).  Each position
+    runs the transcendental ops (conv SiLU, softplus, exp) on tensors of
+    decode's shapes: a CPU kernel splits a tensor into vector and scalar
+    parts by its size, and the two parts can round differently.
+
+    Returns (out (bt, s, d_model), info): what :func:`ssm_commit_chunk`
+    needs, the discretized inputs ``xd`` (bt, s, h, p) / ``dt_a``
+    (bt, s, h) / ``b`` (bt, s, n), fp32, and the ``[carry | raw]`` conv
+    streams ``fx`` / ``fb`` / ``fc`` (bt, k-1+s, c)."""
+    bt, s, _ = x.shape
+    h, pd = cfg.ssm_heads, cfg.ssm_head_dim
+    z, xr, br, cr, dt_raw = _project(p, x)
+    streams = {sec: torch.cat([cache[f"conv_{sec}"].to(r.dtype), r], dim=1)
+               for sec, r in (("x", xr), ("b", br), ("c", cr))}
+    windows = {sec: _conv_windows(f, s, cfg.ssm_conv)
+               for sec, f in streams.items()}
+    state = cache["state"]
+    xhs, xds, das, bs, ys = [], [], [], [], []
+    for j in range(s):
+        conv = {sec: _conv_step(p, sec, w[j]) for sec, w in windows.items()}
+        xh = conv["x"].reshape(bt, 1, h, pd)
+        dt, dt_a = _discretize(p, dt_raw[:, j:j + 1].contiguous())
+        xd = (xh * dt[..., None]).float()[:, 0]             # (bt, h, p)
+        a = dt_a.float()[:, 0]                              # (bt, h)
+        b_ = conv["b"].float()
+        state = _state_step(state, a, xd, b_)
+        ys.append(torch.einsum("bhpn,bn->bhp", state, conv["c"].float()))
+        xhs.append(xh[:, 0])
+        xds.append(xd)
+        das.append(a)
+        bs.append(b_)
+    out = _gated_out(p, torch.stack(ys, dim=1), torch.stack(xhs, dim=1), z,
+                     x.dtype, cfg)
+    info = {"xd": torch.stack(xds, dim=1), "dt_a": torch.stack(das, dim=1),
+            "b": torch.stack(bs, dim=1), "fx": streams["x"],
+            "fb": streams["b"], "fc": streams["c"]}
+    return out, info
+
+
+def ssm_commit_chunk(cache: dict, info: dict, e: torch.Tensor,
+                     cfg: ArchConfig) -> dict:
+    """Advance the layer's pool (bt rows) by the first ``e`` (bt,)
+    verified positions of each row, in place; rows with ``e`` 0 keep
+    their carries and state.
+
+    Nothing was written during verify, so rolling back is committing
+    only the accepted prefix: the state replays :func:`ssm_decode`'s
+    update from the pre-block state over all ``s`` positions, with the
+    rejected ones identity steps (log decay 0, so exp gives 1, and input
+    0): bit for bit ``e`` decode steps.  The conv carry is rows
+    [e, e + k-1) of ``[carry | raw]``, gathered per row."""
+    bt, s = info["dt_a"].shape[:2]
+    k1 = cfg.ssm_conv - 1
+    dev = e.device
+    ok = torch.arange(s, device=dev)[None, :] < e[:, None]   # (bt, s)
+    state = cache["state"]
+    for j in range(s):
+        m = ok[:, j]
+        state = _state_step(
+            state, torch.where(m[:, None], info["dt_a"][:, j], 0.0),
+            torch.where(m[:, None, None], info["xd"][:, j], 0.0),
+            torch.where(m[:, None], info["b"][:, j], 0.0))
+    rows = e.long()[:, None] + torch.arange(k1, device=dev)[None, :]
+    new = {"state": state}
+    for sec in ("x", "b", "c"):
+        f = info[f"f{sec}"]
+        new[f"conv_{sec}"] = f.gather(
+            1, rows[..., None].expand(bt, k1, f.shape[-1]))
+    slotstate.decode_advance(e > 0, cache, new)
+    return cache

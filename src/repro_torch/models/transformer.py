@@ -54,6 +54,12 @@ reference.
 :func:`lm_prefill` writes the prompt's K/V (or the SSM carries and
 state) into a fresh pooled cache from :func:`init_cache`, so
 :func:`lm_decode_step` continues from it unchanged.
+
+Speculative decoding scores a block of tentative tokens a row without
+writing the cache (:func:`lm_verify_chunk`: plain ``cache_attention``
+over the cache concatenated with the block, as in the reference), then
+writes the kept prefix (:func:`lm_commit_chunk`); a draft model's eager
+writes are undone by :func:`lm_rollback_chunk`.
 """
 
 from __future__ import annotations
@@ -603,4 +609,129 @@ def lm_encode_slot(params: dict, cache: dict, frames: torch.Tensor,
             attn.cache_write_chunk(
                 slotstate.take_row(entry["cross_kv"], slot), ck, cv,
                 positions, valid, kv_format=cfg.kv_format_for(i))
+    return cache
+
+
+# --------------------------------------------------------------------- #
+# Speculative verify, commit and rollback
+# --------------------------------------------------------------------- #
+
+def lm_verify_chunk(params: dict, cache: dict, tokens: torch.Tensor,
+                    positions: torch.Tensor, cfg: ArchConfig
+                    ) -> Tuple[torch.Tensor, list]:
+    """Score ``s`` tentative tokens a pool row in one pass, as ``s``
+    successive :func:`lm_decode_step` calls would, without writing the
+    cache.
+
+    tokens (b, s): row r is [last committed token, draft_1, ...,
+    draft_{s-1}]; positions (b, s) int32: each token's absolute position
+    (``pos[r] + j``).  Returns (logits (b, s, vocab) fp32, info): logits
+    row j is the next-token distribution after tokens[:, :j+1]; ``info``
+    (one dict of ``pos{i}`` legs a layer) is what
+    :func:`lm_commit_chunk` writes: an attention layer's post-RoPE K/V,
+    an SSM layer's discretized inputs and conv streams.
+
+    An attention layer's queries attend the concatenation of the
+    pre-block cache view (dequantized whole when it is quantized,
+    ``cache_kv``) and the chunk's own K/V, rounded as decode would read
+    them back (quantized then dequantized under the position's format;
+    cast to the storage dtype for a dense cache).  Writing first and
+    reading after would be wrong on a local ring (capacity == window):
+    writing row j evicts position pos+j-cap, which the queries before j
+    still see.  An SSM layer runs the decode recurrence in order
+    (``models.ssm.ssm_verify_chunk``), read-only; cross-attention reads
+    its ring at query position 2^30; a MoE FFN routes as in decode.
+    Inactive rows give garbage logits that the caller never keeps."""
+    cdt = resolve_dtype(cfg.compute_dtype)
+    x = embed(params["embed"], tokens).to(cdt)             # (b, s, d)
+    pos_far = (torch.full_like(positions, CROSS_POS)
+               if any(b.cross_attn for b in cfg.block_pattern()) else None)
+    info = []
+    for layer in range(cfg.n_periods):
+        legs = {}
+        for i, blk in enumerate(cfg.block_pattern()):
+            p = _at(params["layers"][f"pos{i}"], layer)
+            entry = _at(cache[f"pos{i}"], layer)
+            h = rms_norm(p["ln_mix"], x, cfg.norm_eps)
+            if blk.mixer == "ssm":
+                out, legs[f"pos{i}"] = ssm.ssm_verify_chunk(
+                    p["ssm"], h, entry["ssm"], cfg)
+                x, _ = apply_ffn(p, blk, cfg, x + out)
+                continue
+            kv = entry["kv"]
+            q = attn.project_q(p["attn"], h)
+            k, v = attn.project_kv(p["attn"], h)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+            kv_fmt = cfg.kv_format_for(i)
+            kc, vc = attn.cache_kv(kv, kv_fmt, cfg.head_dim,
+                                   out_dtype=x.dtype)
+            if attn.is_quantized_cache(kv):
+                kd, vd = (attn.dequantize_kv(*attn.quantize_kv(t, kv_fmt),
+                                             kv_fmt, cfg.head_dim,
+                                             out_dtype=x.dtype)
+                          for t in (k, v))
+            else:
+                kd, vd = k.to(kc.dtype), v.to(vc.dtype)
+            o = attn.cache_attention(
+                q, torch.cat([kc, kd], dim=1), torch.cat([vc, vd], dim=1),
+                torch.cat([kv["slot_pos"], positions.to(torch.int32)],
+                          dim=1),
+                positions, window=blk.window,
+                softcap=cfg.attn_logit_softcap)
+            x = x + attn.project_out(p["attn"], o)
+            legs[f"pos{i}"] = {"k": k, "v": v}
+            if blk.cross_attn and "cross_kv" in entry:
+                ckv = entry["cross_kv"]
+                h = rms_norm(p["ln_cross"], x, cfg.norm_eps)
+                q = attn.project_q(p["cross"], h)
+                ck, cv = attn.cache_kv(ckv, kv_fmt, cfg.head_dim,
+                                       out_dtype=x.dtype)
+                o = attn.cache_attention(q, ck, cv, ckv["slot_pos"], pos_far)
+                x = x + attn.project_out(p["cross"], o)
+            x, _ = apply_ffn(p, blk, cfg, x)
+        info.append(legs)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(unembed_weight(params, cfg), x,
+                     cfg.final_logit_softcap)
+    return logits, info
+
+
+def lm_commit_chunk(cache: dict, info: list, positions: torch.Tensor,
+                    e: torch.Tensor, cfg: ArchConfig) -> dict:
+    """Commit the first ``e`` (b,) verified positions of each row into the
+    cache, in place: the writes :func:`lm_verify_chunk` deferred.
+    positions (b, s) as given to verify; ``e`` in [0, s], 0 for an
+    inactive row (every write a no-op there).  An attention layer writes
+    through decode's quantize-on-write (``attention.cache_write_rows``),
+    an SSM layer re-materializes its state from the pre-block state
+    (``models.ssm.ssm_commit_chunk``); cross rings and ``enc_out`` are
+    read-only.  Needs no parameters: ``info`` holds the K/V and the
+    discretized SSM inputs."""
+    s = positions.shape[1]
+    valid = torch.arange(s, device=e.device)[None, :] < e[:, None]
+    for layer, legs in enumerate(info):
+        for i, blk in enumerate(cfg.block_pattern()):
+            entry = _at(cache[f"pos{i}"], layer)
+            leg = legs[f"pos{i}"]
+            if blk.mixer == "ssm":
+                ssm.ssm_commit_chunk(entry["ssm"], leg, e, cfg)
+            else:
+                attn.cache_write_rows(entry["kv"], leg["k"], leg["v"],
+                                      positions, valid,
+                                      kv_format=cfg.kv_format_for(i))
+    return cache
+
+
+def lm_rollback_chunk(cache: dict, positions: torch.Tensor,
+                      reject: torch.Tensor) -> dict:
+    """Invalidate speculative writes at ``positions`` (b, s) where
+    ``reject`` (b, s), in place: a ``slot_pos`` pointer move in every
+    self-attention ring (``attention.cache_rollback`` on the
+    period-stacked leaves).  Cross rings, SSM parts and payload bytes
+    are untouched.  Used on a draft model's cache, whose drafting decode
+    steps write eagerly."""
+    for name, entry in cache.items():
+        if name.startswith("pos") and "kv" in entry:
+            attn.cache_rollback(entry["kv"], positions, reject)
     return cache

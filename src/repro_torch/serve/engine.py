@@ -62,8 +62,21 @@ with no host branch) or poisons the slot's cache in place
 :meth:`ServeEngine.watchdog_report` reconciles host and device slot
 state.  ``serve.traffic`` replays seeded arrival traces through it.
 
-Not ported yet (they raise ``NotImplementedError``): mesh serving and
-speculation.
+Speculative decoding, as in the reference (``spec=``, a
+:class:`~repro_torch.serve.spec.SpecConfig`): each fused step becomes a
+block that drafts ``draft_tokens`` tokens (n-gram tables kept per slot
+on the device, a small draft model sharing the slot protocol, or a
+scripted ``draft_fn``), scores them with the last committed token in
+one ``Model.verify_chunk`` pass, samples the true tokens from those
+logits under the same per-(request, position) keys, keeps the prefix
+the drafts predicted plus one, commits it (``Model.commit_chunk``) and
+rolls the draft model's rejected writes back (``Model.rollback_chunk``).
+Greedy and sampled streams are the non-speculative engine's; drafts
+decide only how many tokens a block keeps.  The block makes no host
+read; :meth:`ServeEngine.spec_report` counts from the one read a
+dispatch makes.
+
+Not ported yet (it raises ``NotImplementedError``): mesh serving.
 """
 
 from __future__ import annotations
@@ -78,11 +91,13 @@ import torch
 from repro_torch.compat import resolve_device, resolve_dtype
 from repro_torch.models.model import Model, build_model
 from repro_torch.serve import faults as fault_lib
+from repro_torch.serve import spec as spec_lib
 from repro_torch.serve.admission import (
     AdmissionConfig, AdmissionQueue, QueueFull)
 from repro_torch.serve.quant import dequantize_tree, quantize_tree
 from repro_torch.serve.prng import prng_key
-from repro_torch.serve.sampler import sample_tokens
+from repro_torch.serve.sampler import sample_tokens, sample_tokens_chunk
+from repro_torch.serve.spec import SpecConfig
 
 # terminal request states; every submitted request ends in exactly one
 STATUSES = ("ok",                  # full generation delivered
@@ -149,12 +164,47 @@ def _tree_to(tree: dict, device: torch.device) -> dict:
             for k, v in tree.items()}
 
 
+def _reset_cache(cache: dict) -> None:
+    """Empty a pooled cache in place: ring ``slot_pos`` -1, every other
+    leaf (payload, SSM carries and state, ``enc_out``) zero."""
+    for entry in cache.values():
+        if isinstance(entry, torch.Tensor):          # enc_out
+            entry.zero_()
+            continue
+        for tree in entry.values():      # ring KV or SSM carries/state
+            for name, leaf in tree.items():
+                if name == "slot_pos":
+                    leaf.fill_(-1)
+                else:
+                    leaf.zero_()
+
+
+def _check_draft_model(target: Model, draft: Model) -> None:
+    """The reference's restrictions on a draft model and its target."""
+    dcfg, cfg = draft.cfg, target.cfg
+    if (dcfg.is_encoder_decoder or dcfg.frontend == "vision"
+            or any(blk.mixer != "attn" or blk.cross_attn
+                   for blk in dcfg.block_pattern())):
+        raise ValueError(
+            f"draft model {dcfg.name} must be a plain decoder-only "
+            f"attention LM (the draft leg reuses the ring slot_pos "
+            f"rollback, which only attention caches support)")
+    if cfg.is_encoder_decoder or cfg.frontend == "vision":
+        raise ValueError(
+            f"draft-model speculation needs a plain decoder-only target "
+            f"(got {cfg.name}); n-gram drafting covers the other families")
+    if dcfg.vocab_size != cfg.vocab_size:
+        raise ValueError(f"draft vocab {dcfg.vocab_size} != target vocab "
+                         f"{cfg.vocab_size}")
+
+
 class ServeEngine:
     """See module docstring.  ``decode_block`` is K, the number of decode
     steps fused between two host reads by :meth:`run` (1 = the per-token
     pattern).  ``enc_len``: the source positions each slot of an
     encoder-decoder pool holds (default ``max_seq``; 0 for any other
-    model)."""
+    model).  ``spec``: a :class:`SpecConfig` turns speculative decoding
+    on (see module docstring)."""
 
     def __init__(self, model: Model, params: dict, batch: int,
                  max_seq: int, temperature: float = 0.0, top_k: int = 0,
@@ -166,12 +216,11 @@ class ServeEngine:
                  compute_dtype: torch.dtype = torch.bfloat16,
                  admission: Optional[AdmissionConfig] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 mesh: Any = None, spec: Any = None):
-        for name, value in (("mesh", mesh), ("spec", spec)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ServeEngine({name}=...) arrives with a later slice "
-                    f"of the port")
+                 mesh: Any = None, spec: Optional[SpecConfig] = None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServeEngine(mesh=...) arrives with a later slice of the "
+                "port")
         self.device = resolve_device(device)
         if kv_format:
             # the model's cache layer quantizes: every prefill and decode
@@ -204,6 +253,21 @@ class ServeEngine:
         # an enc-dec pool holds every request's source at one fixed enc_len
         self.enc_len = ((enc_len or max_seq)
                         if model.cfg.is_encoder_decoder else 0)
+        # speculative decoding: a draft model keeps a pooled cache of its
+        # own, prefilled through the same chunk stream as the target's
+        self.spec = spec
+        self._draft_model: Optional[Model] = None
+        self._draft_params: Optional[dict] = None
+        self._draft_cache: Optional[dict] = None
+        if spec is not None and spec.draft_model is not None:
+            _check_draft_model(model, spec.draft_model)
+            self._draft_model = spec.draft_model
+            self._draft_params = _tree_to(spec.draft_params, self.device)
+            self._draft_cache = self._draft_model.init_cache(
+                batch, max_seq, self.device)
+            self.prefill_chunk = max(1, min(
+                self.prefill_chunk,
+                self._draft_model.min_cache_capacity(max_seq)))
         self.cache = model.init_cache(batch, max_seq, self.device,
                                       enc_len=self.enc_len)
         self.kv_stats = model.kv_cache_stats(self.cache)
@@ -217,16 +281,9 @@ class ServeEngine:
         """Clear all serving state (cache, slots, queue, results); the
         parameters and the cache's tensors stay (reset in place).  The
         admission config survives; :meth:`set_admission` swaps it."""
-        for entry in self.cache.values():
-            if isinstance(entry, torch.Tensor):      # enc_out
-                entry.zero_()
-                continue
-            for tree in entry.values():      # ring KV or SSM carries/state
-                for name, leaf in tree.items():
-                    if name == "slot_pos":
-                        leaf.fill_(-1)
-                    else:
-                        leaf.zero_()
+        _reset_cache(self.cache)
+        if self._draft_cache is not None:
+            _reset_cache(self._draft_cache)
         self.state = self._init_state()
         self.slot_req: List[Optional[_Request]] = [None] * self.batch
         self.out_tokens: List[List[int]] = [[] for _ in range(self.batch)]
@@ -241,6 +298,10 @@ class ServeEngine:
         self._armed: set = set()
         self.decode_steps = 0          # fused decode steps run
         self.dispatches = 0            # decode blocks run (host reads)
+        # engine-lifetime speculation totals (spec_report), counted from
+        # the codes each dispatch reads anyway
+        self._spec_tokens = 0
+        self._spec_blocks = 0
         # watchdog: per-slot (token count, dispatch index) at the last
         # block that advanced the slot
         self._slot_progress: List[Tuple[int, int]] = [(0, 0)] * self.batch
@@ -282,9 +343,13 @@ class ServeEngine:
     # -- device state --------------------------------------------------- #
     def _init_state(self) -> dict:
         """The slot state on the device.  ``fault_pos`` / ``fault_kind``
-        arm the in-loop logits fault (disarmed at -1 / 0)."""
+        arm the in-loop logits fault (disarmed at -1 / 0).  A speculative
+        engine adds each slot's n-gram history and table (``spec_hist``
+        (b, ngram_context), ``spec_ngram`` (b, ngram_table), -1 empty)
+        and its tenant's tokens committed and blocks run
+        (``spec_accept``, ``spec_blocks``)."""
         b, dev = self.batch, self.device
-        return {"pos": torch.zeros(b, dtype=torch.int32, device=dev),
+        state = {"pos": torch.zeros(b, dtype=torch.int32, device=dev),
                 "remaining": torch.zeros(b, dtype=torch.int32, device=dev),
                 "last_token": torch.zeros(b, dtype=torch.int32, device=dev),
                 "active": torch.zeros(b, dtype=torch.bool, device=dev),
@@ -292,6 +357,17 @@ class ServeEngine:
                 "fault_pos": torch.full((b,), -1, dtype=torch.int32,
                                         device=dev),
                 "fault_kind": torch.zeros(b, dtype=torch.int32, device=dev)}
+        if self.spec is not None:
+            sp = self.spec
+            state["spec_hist"] = torch.full((b, sp.ngram_context), -1,
+                                            dtype=torch.int32, device=dev)
+            state["spec_ngram"] = torch.full((b, sp.ngram_table), -1,
+                                             dtype=torch.int32, device=dev)
+            state["spec_accept"] = torch.zeros(b, dtype=torch.int32,
+                                               device=dev)
+            state["spec_blocks"] = torch.zeros(b, dtype=torch.int32,
+                                               device=dev)
+        return state
 
     def _sample(self, logits: torch.Tensor, seed: torch.Tensor,
                 pos: torch.Tensor) -> torch.Tensor:
@@ -473,6 +549,8 @@ class ServeEngine:
         chunks: the patch prefix as embedding chunks (VLM), then the
         tokens.  Returns last-position logits (1, V)."""
         self.model.clear_slot(self.cache, slot)
+        if self._draft_cache is not None:
+            self._draft_model.clear_slot(self._draft_cache, slot)
         chunk = self.prefill_chunk
         if req.frames is not None:
             self.model.encode_slot(self.params, self.cache,
@@ -498,6 +576,11 @@ class ServeEngine:
             logits = self.model.prefill_chunk(self.params, self.cache,
                                               tokens, slot, offset + off,
                                               valid)
+            if self._draft_cache is not None:
+                # a draft model's target is decoder-only: offset is 0
+                self._draft_model.prefill_chunk(
+                    self._draft_params, self._draft_cache, tokens, slot,
+                    offset + off, valid)
         return logits
 
     def _admit(self) -> None:
@@ -515,10 +598,31 @@ class ServeEngine:
                                      req.max_new_tokens, req.request_id)
             self.slot_req[slot] = req
             self.out_tokens[slot] = [int(tok)]
+            if self.spec is not None:
+                self._spec_admit(slot, req.prompt, self.out_tokens[slot][0])
             req.first_token_t = self._now()
             self._slot_progress[slot] = (1, self.dispatches)
             if req.max_new_tokens <= 1:
                 self._finish(slot)
+
+    def _spec_admit(self, slot: int, prompt: List[int], first: int) -> None:
+        """Seed the slot's n-gram history and table from the last
+        ``prompt_tail`` prompt tokens and the first sampled token
+        (``spec.seed_from_tail``; the first token is committed already),
+        and zero its acceptance counts.  The seeding runs on host tensors
+        (all of it is host-known) and lands in the slot's rows by a
+        ``copy_`` into their views."""
+        sp, st = self.spec, self.state
+        got = prompt[-sp.prompt_tail:] if sp.prompt_tail else []
+        tail = np.full(sp.prompt_tail + 1, -1, np.int32)
+        tail[sp.prompt_tail - len(got):sp.prompt_tail] = got
+        tail[-1] = first
+        hist, table = spec_lib.seed_from_tail(
+            torch.from_numpy(tail), sp.ngram_context, sp.ngram_table)
+        st["spec_hist"][slot].copy_(hist, non_blocking=True)
+        st["spec_ngram"][slot].copy_(table, non_blocking=True)
+        _put(st["spec_accept"], slot, 0)
+        _put(st["spec_blocks"], slot, 0)
 
     # -- fused decode --------------------------------------------------- #
     def _decode_block(self, k: int):
@@ -568,6 +672,136 @@ class ServeEngine:
                          + EMIT_FAULT * bad.to(torch.int32))
         return torch.stack(toks), torch.stack(emits)
 
+    # -- speculative decode --------------------------------------------- #
+    def _draft(self) -> torch.Tensor:
+        """(b, D) int32 drafts: ``draft_fn`` of the state, else D greedy
+        decode steps of the draft model (its cache written eagerly, rolled
+        back after acceptance), else the slots' n-gram tables."""
+        sp, st = self.spec, self.state
+        D = sp.draft_tokens
+        if sp.draft_fn is not None:
+            return sp.draft_fn(st).to(torch.int32)
+        if self._draft_cache is None:
+            return spec_lib.ngram_draft(st["spec_hist"], st["spec_ngram"], D)
+        tok, pos, drafts = st["last_token"], st["pos"], []
+        for _ in range(D):
+            logits = self._draft_model.decode_step(
+                self._draft_params, self._draft_cache, tok, pos,
+                active=st["active"])
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            pos = pos + 1
+            drafts.append(tok)
+        return torch.stack(drafts, dim=1)
+
+    def _spec_block(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One speculative block of s = D+1 token positions, with no host
+        read: draft -> verify -> armed fault -> sample the true tokens ->
+        acceptance -> sentinel -> commit -> draft rollback -> slot
+        bookkeeping -> n-gram update.  Returns (tokens (b, s), emit codes
+        (b, s)) int32.
+
+        Row j of the verify scores position pos + j and samples the token
+        of position pos + j + 1 under that position's key.  A row keeps e
+        = min(leading drafts that match + 1, remaining, max_seq-1-pos)
+        tokens (0 when inactive).  An armed logits fault poisons the row
+        whose sampling position is ``fault_pos`` (only while a slot is
+        armed, as in :meth:`_decode_block`); the first non-finite row
+        inside the kept prefix cuts it there, emits EMIT_FAULT after the
+        survivors and drops the slot out of ``active``.  The target's
+        rejected rows are never written; the draft model's are rolled
+        back."""
+        st, D = self.state, self.spec.draft_tokens
+        s = D + 1
+        active, P = st["active"], st["pos"]
+        drafts = self._draft()
+        tokens = torch.cat([st["last_token"][:, None], drafts], dim=1)
+        cols = torch.arange(s, dtype=torch.int32, device=self.device)[None]
+        positions = P[:, None] + cols
+        logits, info = self.model.verify_chunk(self.params, self.cache,
+                                               tokens, positions)
+        q_pos = positions + 1
+        if self._armed:
+            kind = st["fault_kind"]
+            hit = ((active & (kind > 0))[:, None]
+                   & (st["fault_pos"][:, None] == q_pos))
+            bad_val = torch.where(kind == fault_lib.FAULT_INF, float("inf"),
+                                  float("nan")).to(logits.dtype)
+            logits = torch.where(hit[..., None], bad_val[:, None, None],
+                                 logits)
+        toks = sample_tokens_chunk(logits, self._sample_key,
+                                   self.temperature, self.top_k,
+                                   slot_seed=st["seed"], pos=q_pos)
+        match = (drafts == toks[:, :D]).to(torch.int32)
+        m = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+        e0 = torch.minimum(m + 1, st["remaining"])
+        e0 = torch.minimum(e0, (self.max_seq - 1 - P).clamp_min(0))
+        e0 = torch.where(active, e0, 0)
+        # sentinel: the first non-finite row inside the kept prefix
+        bad_rows = active[:, None] & ~torch.isfinite(logits).all(dim=-1)
+        first_bad = torch.where(bad_rows, cols, s).amin(dim=1)
+        fault = active & (first_bad < e0)
+        e = torch.where(fault, first_bad, e0).to(torch.int32)
+        self.model.commit_chunk(self.cache, info, positions, e)
+        if self._draft_cache is not None:
+            self._draft_model.rollback_chunk(
+                self._draft_cache, positions[:, :D], cols[:, :D] >= e[:, None])
+        keep = cols < e[:, None]
+        last = toks.gather(1, (e - 1).clamp_min(0).long()[:, None])[:, 0]
+        new_pos = P + e
+        new_rem = st["remaining"] - e
+        finished = active & ~fault & ((new_rem <= 0)
+                                      | (new_pos >= self.max_seq - 1))
+        hist, table = spec_lib.ngram_update(st["spec_hist"],
+                                            st["spec_ngram"], toks, keep)
+        st["last_token"].copy_(torch.where(e > 0, last, st["last_token"]))
+        st["pos"].copy_(new_pos)
+        st["remaining"].copy_(new_rem)
+        st["active"].copy_(active & ~fault & ~finished)
+        if self._armed:
+            st["fault_kind"].copy_(torch.where(fault, 0, kind))
+        st["spec_hist"].copy_(hist)
+        st["spec_ngram"].copy_(table)
+        st["spec_accept"].add_(e)
+        st["spec_blocks"].add_(active.to(torch.int32))
+        emit = torch.where(keep, EMIT_TOKEN, EMIT_NONE)
+        emit = torch.where(fault[:, None] & (cols == e[:, None]), EMIT_FAULT,
+                           emit)
+        return toks, emit.to(torch.int32)
+
+    def _dispatch_spec(self, k: int) -> int:
+        """ceil(k / (D+1)) speculative blocks and their one host read;
+        returns the token positions they cover.  The codes of that read
+        give the engine totals of :meth:`spec_report`: a (block, slot)
+        cell is a run block when any of its codes is not EMIT_NONE."""
+        s = self.spec.draft_tokens + 1
+        n_blocks = max(1, -(-k // s))
+        toks, emits = zip(*(self._spec_block() for _ in range(n_blocks)))
+
+        def rows(blocks):      # n_blocks x (b, s) -> (n_blocks * s, b)
+            return torch.stack(blocks).transpose(1, 2).reshape(
+                n_blocks * s, self.batch)
+
+        self.decode_steps += n_blocks * s
+        codes = self._harvest(rows(toks), rows(emits))
+        self._spec_tokens += int((codes == EMIT_TOKEN).sum())
+        self._spec_blocks += int(
+            (codes.reshape(n_blocks, s, -1) != EMIT_NONE).any(axis=1).sum())
+        return n_blocks * s
+
+    def spec_report(self) -> Dict:
+        """Engine-lifetime speculation totals, as the reference's:
+        ``mean_accepted_len`` is tokens committed a run block (1.0: no
+        draft was ever accepted; draft_tokens+1: every block kept
+        whole)."""
+        blocks = self._spec_blocks
+        return {"enabled": self.spec is not None,
+                "draft_tokens": (0 if self.spec is None
+                                 else self.spec.draft_tokens),
+                "blocks": blocks,
+                "accepted_tokens": self._spec_tokens,
+                "mean_accepted_len": (self._spec_tokens / blocks
+                                      if blocks else 0.0)}
+
     def _any_active(self) -> bool:
         return any(r is not None for r in self.slot_req)
 
@@ -599,18 +833,24 @@ class ServeEngine:
             submit_t=req.submit_t, finish_t=self._now()))
 
     def _dispatch(self, k: int) -> int:
-        """One fused block of K decode steps and its one host read."""
+        """One fused block of K decode steps and its one host read (a
+        speculative engine: :meth:`_dispatch_spec`).  Returns the decode
+        steps spent."""
+        if self.spec is not None:
+            return self._dispatch_spec(k)
         toks, emitted = self._decode_block(k)
         self.decode_steps += k
         self._harvest(toks, emitted)
         return k
 
-    def _harvest(self, toks: torch.Tensor, emitted: torch.Tensor) -> None:
+    def _harvest(self, toks: torch.Tensor, emitted: torch.Tensor
+                 ) -> np.ndarray:
         """Block-boundary host pass: ONE device->host read of the (k, b)
         tokens, codes and the active mask, then per-slot extend / finish
         / fault bookkeeping.  A faulted slot keeps the tokens it emitted
         before the sentinel tripped, finishes ``faulted``, and is evicted
-        through ``clear_slot``."""
+        through ``clear_slot`` (from the draft model's cache too).
+        Returns the host codes (k, b)."""
         k = toks.shape[0]
         host = torch.cat([toks, emitted,
                           self.state["active"].to(torch.int32)[None]]
@@ -627,6 +867,8 @@ class ServeEngine:
             if (codes == EMIT_FAULT).any():
                 self._finish(slot, status="faulted")
                 self.model.clear_slot(self.cache, slot)
+                if self._draft_cache is not None:
+                    self._draft_model.clear_slot(self._draft_cache, slot)
             elif not active_after[slot]:
                 self._finish(slot)
             else:
@@ -634,6 +876,7 @@ class ServeEngine:
                                              self.dispatches)
         if self._deadlines_live:
             self._expire_inflight()
+        return codes_h
 
     def _expire_inflight(self) -> None:
         """Cancel the in-flight requests whose deadline passed: their

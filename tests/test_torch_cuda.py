@@ -1245,3 +1245,122 @@ def test_encdec_and_vlm_engines_card_match_cpu(cuda, arch):
         streams[dev] = [(r.status, r.tokens) for r in res]
     assert streams["cuda"] == streams["cpu"]
     assert all(s == "ok" and len(t) == 13 for s, t in streams["cuda"])
+
+
+# --------------------------------------------------------------------- #
+# speculative serving: engines card vs CPU, a block with no sync, the
+# commit's cache writes
+# --------------------------------------------------------------------- #
+
+SPEC_ARCHS = {"attn": ("gptneox-1b", {}),
+              "ssm": ("mamba2-2.7b", {}),
+              "hybrid": ("jamba-v0.1-52b", {"moe_capacity_factor": 8.0})}
+
+
+def _spec_pair(family, draft):
+    """(model, params, SpecConfig) of a reduced family; ``draft`` "model"
+    drafts with the target itself."""
+    from repro_torch.serve import SpecConfig
+    name, over = SPEC_ARCHS[family]
+    model = build_model(dataclasses.replace(get_config(name).reduced(),
+                                            **over))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    spec = (SpecConfig(draft_tokens=3, ngram_table=64) if draft == "ngram"
+            else SpecConfig(draft_tokens=3, ngram_table=64,
+                            draft_model=model, draft_params=params))
+    return model, params, spec
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy",
+                                                        "sampled"])
+@pytest.mark.parametrize("family,draft", [("attn", "ngram"),
+                                          ("ssm", "ngram"),
+                                          ("hybrid", "ngram"),
+                                          ("attn", "model")])
+def test_spec_engines_card_match_cpu(cuda, family, draft, temperature):
+    """Reduced engines, fp32, TF32 off, speculating: the card's streams
+    are the CPU's speculative and non-speculative streams, and the
+    ``spec_report`` is the CPU's.  The target's verify runs no decode
+    kernel; a draft model's steps launch ``flash_decode`` once a layer
+    a draft."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, params, spec = _spec_pair(family, draft)
+    sampling = dict(temperature=temperature, top_k=8, seed=3)
+    requests = [([1, 2, 3, 4] * 5, 19), ([9, 8, 7], 7)]
+    got = {}
+    for dev, sp in (("cpu", None), ("cpu", spec), ("cuda", spec)):
+        eng = ServeEngine(model, params, batch=2, max_seq=64,
+                          decode_block=8, prefill_chunk=8, device=dev,
+                          spec=sp, **sampling)
+        for prompt, n in requests:
+            eng.submit(prompt, max_new_tokens=n)
+        before = flash_decode.launches
+        streams = [(r.status, r.tokens) for r in eng.run()]
+        launched = flash_decode.launches - before
+        if dev == "cuda":
+            blocks = eng.decode_steps // (spec.draft_tokens + 1)
+            assert launched == (0 if draft == "ngram" else
+                                model.cfg.n_layers * spec.draft_tokens
+                                * blocks)
+        got[(dev, sp is not None)] = (streams, eng.spec_report())
+    assert got[("cuda", True)] == got[("cpu", True)]
+    assert got[("cuda", True)][0] == got[("cpu", False)][0]
+    assert all(s == "ok" for s, _ in got[("cuda", True)][0])
+
+
+@pytest.mark.parametrize("draft", ["ngram", "model"])
+def test_spec_block_makes_no_sync(cuda, draft):
+    """gptneox reduced with fp8 KV: arming a logits fault, a cancel and
+    the speculative block that follows make no implicit device-to-host
+    synchronization; the fault (armed on the block's first row, which
+    every active slot keeps) fires in the block, the other slots go
+    on."""
+    model, params, spec = _spec_pair("attn", draft)
+    eng = ServeEngine(model, params, batch=3, max_seq=64, decode_block=8,
+                      prefill_chunk=8, device="cuda",
+                      kv_format="float8_e4m3fn", spec=spec)
+    ids = [eng.submit([1, 2, 3, 4] * 3, max_new_tokens=30),
+           eng.submit([3, 4], max_new_tokens=30),
+           eng.submit([5, 6, 7], max_new_tokens=30)]
+    eng.decode_loop(4)            # admission and a first block
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.inject_fault(ids[0], "logits_nan", delay=0)
+        eng.cancel(ids[1])
+        toks, emits = eng._spec_block()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng._harvest(toks.T, emits.T)
+    res = {r.request_id: r.status for r in eng.results}
+    assert res == {ids[0]: "faulted", ids[1]: "shed"}
+    assert eng.slot_req[2] is not None and eng.accounting()["balanced"]
+
+
+@pytest.mark.parametrize("fmt", [None, *FORMATS])
+def test_cache_write_rows_card_matches_cpu(cuda, fmt):
+    """The speculative commit's scatter (per-row positions through a ring
+    wrap, a masked tail, an inactive row) and the rollback that follows
+    leave the card's cache byte for byte the CPU's, dense bf16 and every
+    KV format."""
+    rng = np.random.default_rng(4)
+    b, cap, h, d = 3, 16, 2, 32
+    k = torch.from_numpy(rng.standard_normal((b, 5, h, d), np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, 5, h, d), np.float32))
+    positions = torch.tensor([[14, 15, 16, 17, 18], [3, 4, 5, 6, 7],
+                              [0, 1, 2, 3, 4]], dtype=torch.int32)
+    valid = torch.tensor([[1, 1, 1, 1, 0], [1, 1, 0, 0, 0],
+                          [0, 0, 0, 0, 0]], dtype=torch.bool)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cache = attn.init_kv_cache(b, cap, h, d, BF16, dev, kv_format=fmt)
+        attn.cache_write_rows(cache, k.to(dev), v.to(dev),
+                              positions.to(dev), valid.to(dev),
+                              kv_format=fmt)
+        attn.cache_rollback(cache, positions.to(dev), ~valid.to(dev) |
+                            (positions.to(dev) == 16))
+        out[dev] = {n: t.cpu().view(torch.uint8) if t.element_size() == 1
+                    else t.cpu() for n, t in cache.items()}
+    for name, want in out["cpu"].items():
+        assert torch.equal(out["cuda"][name], want), name

@@ -25,6 +25,9 @@ engines and scripts).
   ``cross_kv_bytes`` and ``"pos{i}.cross"`` rows; ``submit`` refusing
   what the reference refuses; the enc-dec row of
   ``tests/test_serve_robust.py`` (a fault, cancel, deadlines).
+* Speculation: n-gram drafting (``ServeEngine(spec=SpecConfig(...))``)
+  at dense, fp8 and fp4 KV gives the reference's non-speculative
+  streams and its speculative engine's ``spec_report``.
 """
 
 import dataclasses
@@ -321,3 +324,11 @@ def test_clear_slot_and_reset_empty_the_encoder_state(pair, engines):
     assert (port.cache["enc_out"][1] != 0).any()
     port.reset()
     assert (ring == -1).all() and (port.cache["enc_out"] == 0).all()
+
+
+@pytest.mark.parametrize("kv_format", KV_FORMATS)
+def test_ngram_speculation_matches_reference(engines, kv_format):
+    """``ServeEngine(spec=SpecConfig(...))`` with n-gram drafting: the
+    streams of the reference's non-speculative engine, and the reference
+    speculative engine's ``spec_report``."""
+    cases.ngram_spec_streams(engines, kv_format)

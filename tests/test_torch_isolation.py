@@ -404,3 +404,27 @@ def test_flash_attention_check_kernel_inputs_refuses(case, error):
         kfa.check_kernel_inputs(q, k, v, window, q_offset)
     kfa.check_kernel_inputs(*_fa_inputs(), None, 0)
     kfa.check_kernel_inputs(*_fa_inputs(dtype=torch.bfloat16, d=256), 8, 3)
+
+
+@pytest.mark.parametrize("draft", ["ngram", "model"])
+def test_spec_engine_defaults_to_the_card(no_card, draft):
+    """A speculative engine (n-gram drafting, or a draft model) refuses
+    to start without a card when no device is named, and
+    ``serve/spec.py`` is among the files the import check reads; only
+    ``mesh=`` is still refused as not ported."""
+    from repro_torch.serve import SpecConfig
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "src/repro_torch/serve/spec.py" in names
+    cfg = get_config("gptneox-1b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    spec = (SpecConfig() if draft == "ngram" else
+            SpecConfig(draft_model=model, draft_params=params))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params, batch=1, max_seq=16, spec=spec)
+    eng = ServeEngine(model, params, batch=1, max_seq=16, spec=spec,
+                      device="cpu")
+    assert eng.spec_report()["enabled"]
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ServeEngine(model, params, batch=1, max_seq=16, spec=spec,
+                    device="cpu", mesh=object())

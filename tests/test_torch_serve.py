@@ -24,7 +24,7 @@ from repro.serve import ServeEngine as RefEngine  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve import ServeEngine, SpecConfig  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -121,11 +121,12 @@ def test_max_seq_finish_matches_reference(models):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"spec": object()},
+    {"mesh": object()}, {"mesh": object(), "spec": SpecConfig()},
     {"mesh": object(), "spec": object()}])
 def test_later_slice_options_raise(models, kwargs):
-    """Mesh serving and speculation are not ported (admission policies
-    are, in ``tests/test_torch_serve_robust.py``)."""
+    """Mesh serving is not ported, with or without speculation
+    (speculation is, in ``tests/test_torch_serve_spec.py``; admission
+    policies in ``tests/test_torch_serve_robust.py``)."""
     _, _, model, params = models
     with pytest.raises(NotImplementedError):
         ServeEngine(model, params, batch=1, max_seq=16, device="cpu",

@@ -23,7 +23,8 @@ reference's tests pin, on the port:
 
 The enc-dec and VLM rows run in ``tests/test_torch_encdec.py`` and
 ``tests/test_torch_vlm.py``; the speculative bitflip test of the
-reference's file arrives with its slice.
+reference's file (``test_spec_kv_bitflip_survivor_isolation``) runs in
+``tests/test_torch_serve_spec.py``.
 """
 
 import dataclasses

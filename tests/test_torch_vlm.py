@@ -22,6 +22,9 @@ prefill as embedding chunks (``prefill_chunk(embeds=)``).
   test_chunked_prefill_vlm_patches_matches_oracle``); ``kv_stats``;
   ``submit`` refusing what the reference refuses; the VLM row of
   ``tests/test_serve_robust.py`` (a fault, cancel, deadlines).
+* Speculation: n-gram drafting (``ServeEngine(spec=SpecConfig(...))``)
+  at dense, fp8 and fp4 KV gives the reference's non-speculative
+  streams and its speculative engine's ``spec_report``.
 """
 
 import dataclasses
@@ -258,3 +261,11 @@ def test_cancel_inflight_and_queued(engines):
 
 def test_deadlines_with_virtual_clock(engines):
     cases.deadlines_with_virtual_clock(engines)
+
+
+@pytest.mark.parametrize("kv_format", KV_FORMATS)
+def test_ngram_speculation_matches_reference(engines, kv_format):
+    """``ServeEngine(spec=SpecConfig(...))`` with n-gram drafting: the
+    streams of the reference's non-speculative engine, and the reference
+    speculative engine's ``spec_report``."""
+    cases.ngram_spec_streams(engines, kv_format)

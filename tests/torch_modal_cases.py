@@ -10,7 +10,9 @@ so each reference engine compiles one decode block; one reference engine
 per setting is built per module and ``reset()`` between scripts.  The
 source frames and patch prefixes are the reference tests'
 (``tests/test_serve_unified.py::_modal_inputs``: 9 frames, 5 patches,
-N(0, 0.02^2) from ``RandomState(7)``).
+N(0, 0.02^2) from ``RandomState(7)``).  The speculative rows
+(:func:`ngram_spec_streams`) build their speculative engines, the port's
+and the reference's, per call.
 """
 
 import os
@@ -33,7 +35,7 @@ from repro.models import build_model as ref_build_model  # noqa: E402
 from repro_torch import bridge, compat, lowbits  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve import ServeEngine, SpecConfig  # noqa: E402
 
 FP4, FP8 = "float4_e2m1fn", "float8_e4m3fn"
 KV_FORMATS = (None, FP8, FP4)
@@ -251,6 +253,32 @@ def deadlines_with_virtual_clock(engines):
     assert rc.status == "deadline_exceeded" and rc.tokens == []
     assert status_d == "ok"
     assert eng.accounting()["deadline_exceeded"] == 3
+
+
+SPEC = dict(draft_tokens=3, ngram_table=64)
+
+
+def ngram_spec_streams(engines, kv_format):
+    """n-gram speculation (3 drafts, a table of 64) on the family: the
+    port's speculative streams are the reference's non-speculative ones
+    at K 7, and the reference's speculative engine gives the same
+    streams and the port's ``spec_report``."""
+    requests = [(PA, N_LONG), (PB, N_SHORT)]
+    want, _ = serve(engines.get(kv_format=kv_format)[0], requests)
+    ref_model, ref_params, model, params = engines.pair
+    settings = dict(ENGINE, kv_format=kv_format)
+    port = ServeEngine(model, params, device="cpu",
+                       spec=SpecConfig(**SPEC), **settings)
+    got, _ = serve(port, requests)
+    assert got == want
+    assert all(s == "ok" for _, _, s in got)
+    ref = ref_serve.ServeEngine(ref_model, ref_params,
+                                spec=ref_serve.SpecConfig(**SPEC),
+                                **settings)
+    assert serve(ref, requests)[0] == want
+    rep = port.spec_report()
+    assert rep == ref.spec_report() and rep["blocks"] > 0
+    return rep
 
 
 def ref_decode_step(ref_model, ref_params):
