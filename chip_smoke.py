@@ -105,6 +105,18 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    sources of 600..1000 frames (a ragged tail of slot_pos -1); (y) the
    encoder's ``flash_attention``, bf16, non-causal, b 8, sq = skv =
    1000; (z) non-causal cross-attention of 16 queries over 1000 keys;
+1h. ``flash_attention_bwd`` (the training path's backward kernel)
+   against ``flash_attention_bwd_plain`` (the explicit formulas in fp32
+   on the same inputs): (a) qwen2.5-3b's training shape b 8, s 256, hq
+   16 over hkv 2, d 128, bf16, causal; (b) row 5's b 8, s 2048, hq = hkv
+   = 16, d 128; (c) d 256 with window 512 and softcap 50; (d) non-causal
+   d 64 (the seamless encoder, s 1000); (e) fp32; (f) fp32 with softcap 5
+   over scores of sd 4 (q scaled by 4), where the chain factor 1 - t^2
+   spans ~1 to ~0.  Tolerance: bf16 atol 1e-2 x the largest |grad|,
+   fp32 atol 1e-5 x the largest |grad|; two calls bit-identical.  Each case timed (kernel, plain version, and, as
+   a yardstick only, the backward of SDPA where it takes the case)
+   beside the bound (q, k, v, o, dO, dq, dk, dv at the HBM rate; 10 d
+   flops per visible (query, key) pair at the bf16 or fp32 peak);
 2. full-width gptneox-1b (16 layers, d_model 2048, vocab 50432, bf16,
    seeded random weights) through ``ServeEngine.run`` on the card: 8
    requests x 256-token prompts x 64 new tokens, batch 8, max_seq 1024,
@@ -218,8 +230,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    max_seq 1024, prefill chunks of 256, 8 period-3 cyclic 256-token
    prompts (a phase a request) x 64 new tokens: gptneox-1b with n-gram
    drafting (``SpecConfig()``: 4 drafts, a table of 512) over dense and
-   over fp8 KV, and drafting for itself (3 drafts); mamba2-2.7b at full
-   depth with n-gram drafting; each beside the same traffic without
+   over fp8 KV, and drafting for itself (3 drafts); mamba2-2.7b cut to
+   ``CUT_LAYERS`` layers (from PR 26; it served all 64 before) with
+   n-gram drafting; each beside the same traffic without
    speculation.  Decode tok/s, blocks, ``mean_accepted_len``, wall and
    profiled device ms a block, kernels a block, idle share, and per
    request the first index where the speculative stream leaves the
@@ -228,9 +241,21 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    ``flash_decode``).  Gates: every request ``ok`` with 64 tokens; the
    n-gram target launches neither decode kernel; the self-draft run
    ``flash_decode`` exactly 16 x 3 times a block; mamba2's admission
-   ``ssd_scan`` exactly 8 x 64 times; no plain version called; one
+   ``ssd_scan`` exactly 8 x n_layers times; no plain version called; one
    speculative block (fp8 n-gram, and self-draft) under
    ``set_sync_debug_mode("error")``;
+2n. qwen2.5-3b training at full width and full depth (36 layers, 3.09 B
+   bf16 params, tied embeddings), seeded weights, the affine stream,
+   batch 8 x seq 256, under ``torch.use_deterministic_algorithms``:
+   ``run_train_loop`` 3 steps at accum 1, then 3 at accum 2; exactly
+   2 x 36 x accum ``flash_attention`` launches a step (block remat runs
+   each forward twice) and 36 x accum ``flash_attention_bwd``, no plain
+   version; a finite loss and grad norm every step; host s a step,
+   tokens/s, one step profiled (device-busy ms, both kernels' ms, idle
+   share), peak memory.  Then checkpoint / restart at full width cut to
+   ``TRAIN_RESTART_LAYERS`` layers: 2 steps leave a checkpoint, a fresh
+   state resumes from it to step 4, and its losses and final params /
+   ``m`` / ``v`` / step are bit-identical to 4 uninterrupted steps;
 3. the dense path on the card and on the CPU in fp32 with TF32 off, full
    width, 2 layers, the same seeded weights: 2 requests x 32-token
    prompts x 16 new tokens, decode_block 7.  Greedy streams must be
@@ -278,6 +303,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    factor 8.0 (n-gram): the speculative streams identical on card and
    CPU and to the card's non-speculative ones, ``spec_report`` equal on
    card and CPU;
+3i. training card against CPU, fp32, TF32 off: qwen2.5-3b at full width
+   cut to 2 layers, the same seeded weights and batches (2 x 64 tokens),
+   3 steps at accum 1 then 3 at accum 2, each from the CPU's state
+   (copied to the card after the step's comparison); after each step loss and
+   grad_norm within rtol 1e-5, params rtol 1e-4 / atol 1e-6 (at most 1
+   element in 100 of a leaf beyond, within 2 x the summed lr; the K
+   bias, whose gradient is tiny, within that bound), ``m`` /
+   ``v`` rtol 1e-4 / atol 1e-4 x the leaf's largest magnitude;
 4. the probe suite ``repro_torch.launch.characterize`` on the card at the
    reference example's sizes, with every probe kernel's launch count and
    every plain version's call count set to 0 just before and read just
@@ -297,6 +330,7 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -321,6 +355,12 @@ SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:71"
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:100"
+FAB_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+# no Pallas backward exists: the kernel is the backward of row 5's
+# forward and computes what differentiating the XLA attention() computes
+FAB_REPLACES = ("src/repro/kernels/flash_attention.py:100 (backward; "
+                "src/repro/models/attention.py:221 attention(), "
+                "differentiated)")
 PROBE_SOURCES = {
     "dep_chain": ("src/repro_torch/csrc/probe_dep_chain.cu",
                   "src/repro/kernels/probe_dep_chain.py:40"),
@@ -329,7 +369,8 @@ PROBE_SOURCES = {
     "mma_probe": ("src/repro_torch/csrc/probe_mma.cu",
                   "src/repro/kernels/probe_mma.py:48")}
 SOURCES = ("flash_decode", "flash_decode_quant", "qmatmul", "probe_dep_chain",
-           "probe_chase", "probe_mma", "ssd_scan", "flash_attention")
+           "probe_chase", "probe_mma", "ssd_scan", "flash_attention",
+           "flash_attention_bwd")
 FORMATS = ("float8_e4m3fn", "float8_e5m2", "float6_e2m3fn",
            "float6_e3m2fn", "float4_e2m1fn")
 TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
@@ -339,8 +380,11 @@ COLD_BYTES = 120e6          # input sets cycled per timing: > the 50 MB L2
 # (qwen2.5-3b, llama3.2-3b, gemma-2b: 36, 28, 18) and 2k (seamless: 12
 # encoder and 12 decoder layers) are cut to, so that the whole run,
 # speculation (2m, 3h) included, stays well inside its time limit on a
-# slow host; 2m serves mamba2-2.7b at full depth
+# slow host; 2m serves mamba2-2.7b at the same cut
 CUT_LAYERS = 8
+# the depth of phase 2n's restart check (a full-depth qwen2.5-3b train
+# state is 31 GB a snapshot; at 2 layers ~4.7 GB, the embedding's share)
+TRAIN_RESTART_LAYERS = 2
 
 
 def log(msg: str) -> None:
@@ -3391,7 +3435,8 @@ def _no_sync_block(eng, prompts, label):
 
 def phase2m_speculation():
     """Speculative serving at full width, bf16, seeded weights: gptneox-1b
-    and mamba2-2.7b (full depth), batch 8, max_seq 1024, prefill chunks
+    (full depth) and mamba2-2.7b (cut to ``CUT_LAYERS`` layers), batch 8,
+    max_seq 1024, prefill chunks
     of 256, 8 cyclic 256-token prompts x 64 new tokens, each speculative
     run beside the non-speculative run of the same traffic."""
     from repro_torch.configs import get_config
@@ -3443,7 +3488,8 @@ def phase2m_speculation():
     del eng, params
     torch.cuda.empty_cache()
 
-    cfg = get_config("mamba2-2.7b")
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"),
+                              n_layers=CUT_LAYERS)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
@@ -3615,10 +3661,442 @@ def phase4_characterize():
     return counts
 
 
+def _fa_bwd_bound(spec, flags, hbm, peak):
+    """(bound ms, bound_by, bytes, flops) of one backward call: q, k, v,
+    o, dO read and dq, dk, dv written once; 10 d flops per visible
+    (query, key) pair and q head (S and dP recomputed, dV, dQ, dK)."""
+    b, s, hq, hkv, d = (spec[n] for n in ("b", "s", "hq", "hkv", "d"))
+    elt = 2 if spec["dtype"] == torch.bfloat16 else 4
+    moved = elt * (4 * b * s * hq * d + 4 * b * s * hkv * d)
+    _, pairs = fa_visible(s, s, **flags)
+    flops = 10 * d * pairs * b * hq
+    ms, by = bound(moved, flops, hbm, peak)
+    return ms, by, moved, flops
+
+
+def phase1h_flash_attention_bwd(model):
+    """``flash_attention_bwd`` against ``flash_attention_bwd_plain`` (the
+    explicit formulas in fp32 on the same inputs) on the card: (a) the
+    training path's shape, qwen2.5-3b at b 8, s 256, hq 16 over hkv 2,
+    d 128, bf16, causal; (b) row 5's shape, b 8, s 2048, hq = hkv = 16,
+    d 128, bf16, causal; (c) d 256 with window 512 and softcap 50 (gemma2's
+    head_dim), b 2, s 1024, hq 8 over hkv 4; (d) non-causal d 64 (the
+    seamless encoder), b 4, s 1000, 16 heads; (e) fp32, b 4, s 512, hq 16
+    over hkv 2; (f) fp32 with softcap 5 and q scaled by 4, so that the raw
+    scores (sd 4) reach the cap and the chain factor ``1 - t^2`` spans
+    ~1 to ~0 (at (c) the scores sit near 1 and the factor near 1), b 2,
+    s 512, hq 8 over hkv 2.  Tolerance: bf16 atol 1e-2 x the largest |grad| (the
+    outputs' bf16 rounding), fp32 atol 1e-5 x the largest |grad|
+    (summation order); two calls bit-identical (no atomics).  Each case
+    timed (kernel, plain version, the backward of SDPA where SDPA takes
+    the case, which it does not under a window or a softcap: a yardstick
+    the port never calls) beside its bound."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    hbm, peak_bf16 = model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"]
+    peak_f32 = model.vector_flops["float32"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {
+        "a_qwen_train": (dict(b=8, s=256, hq=16, hkv=2, d=128, dtype=bf16),
+                         {}),
+        "b_row5": (dict(b=8, s=2048, hq=16, hkv=16, d=128, dtype=bf16), {}),
+        "c_d256_window512_softcap50": (
+            dict(b=2, s=1024, hq=8, hkv=4, d=256, dtype=bf16),
+            dict(window=512, softcap=50.0)),
+        "d_non_causal_d64": (dict(b=4, s=1000, hq=16, hkv=16, d=64,
+                                  dtype=bf16), dict(causal=False)),
+        "e_fp32": (dict(b=4, s=512, hq=16, hkv=2, d=128, dtype=f32), {}),
+        "f_fp32_softcap5_q4": (
+            dict(b=2, s=512, hq=8, hkv=2, d=128, dtype=f32, q_scale=4.0),
+            dict(softcap=5.0)),
+    }
+
+    def inputs(spec, seed):
+        q, k, v = fa_case(seed, spec["b"], spec["s"], spec["s"], spec["hq"],
+                          spec["hkv"], spec["d"], spec["dtype"])
+        q = q * spec.get("q_scale", 1.0)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+        return q, k, v, do
+
+    entries = []
+    for i, (case, (spec, flags)) in enumerate(cases.items()):
+        q, k, v, do = inputs(spec, 70 + i)
+        o = flash_attention(q, k, v, **flags)
+        got = flash_attention_bwd(q, k, v, o, do, **flags)
+        again = flash_attention_bwd(q, k, v, o, do, **flags)
+        want = flash_attention_bwd_plain(q, k, v, o, do, **flags)
+        torch.cuda.synchronize()
+        frac = 1e-2 if spec["dtype"] == bf16 else 1e-5
+        err = 0.0
+        for name, x, y, z in zip("qkv", got, again, want):
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"flash_attention_bwd {case}: d{name} "
+                                     f"is not finite")
+            if not torch.equal(x, y):
+                raise AssertionError(f"flash_attention_bwd {case}: d{name} "
+                                     f"differs between two calls")
+            scale = z.float().abs().max().item()
+            e = (x.float() - z.float()).abs().max().item()
+            log(f"[kernel] flash_attention_bwd {case}: d{name} max_abs_err "
+                f"{e:.3e} (tol {frac:g} x max |d{name}| {scale:.4g})")
+            torch.testing.assert_close(x.float(), z.float(), rtol=0.0,
+                                       atol=frac * scale)
+            err = max(err, e)
+        del got, again, want
+        sets = [(q, k, v, o, do)]
+        for j in range(n_sets(nbytes(q, k, v, o, do)) - 1):
+            qj, kj, vj, doj = inputs(spec, 170 + 10 * i + j)
+            sets.append((qj, kj, vj, flash_attention(qj, kj, vj, **flags),
+                         doj))
+
+        def kern(q, k, v, o, do):
+            return flash_attention_bwd(q, k, v, o, do, **flags)
+
+        def plain(q, k, v, o, do):
+            return flash_attention_bwd_plain(q, k, v, o, do, **flags)
+
+        ms = time_ms(kern, sets)
+        plain_ms = time_ms(plain, sets[:1], reps=3, n=1)
+        library_ms = None
+        if "window" not in flags and "softcap" not in flags:
+            lib_sets = []
+            for q_, k_, v_, _, do_ in sets:
+                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                              for t in (q_, k_, v_))
+                out = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=flags.get("causal", True),
+                    enable_gqa=spec["hq"] != spec["hkv"])
+                lib_sets.append((out, qt, kt, vt, do_.transpose(1, 2)))
+
+            def sdpa_bwd(out, qt, kt, vt, dot):
+                return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+            library_ms = time_ms(sdpa_bwd, lib_sets)
+            del lib_sets
+        peak, peak_name = ((peak_bf16, "bf16") if spec["dtype"] == bf16
+                           else (peak_f32, "fp32"))
+        bound_ms, bound_by, moved, flops = _fa_bwd_bound(spec, flags, hbm,
+                                                         peak)
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"[kernel] flash_attention_bwd {case} timing: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"sdpa backward {lib}, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{moved} B at {hbm / 1e12:g} TB/s, {flops} flop at {peak_name} "
+            f"{peak / 1e12:g} TFLOP/s); {len(sets)} input sets")
+        causal = "non_causal" if flags.get("causal") is False else "causal"
+        entries.append({
+            "name": f"flash_attention_bwd[{case},b{spec['b']}_s{spec['s']}_"
+                    f"hq{spec['hq']}_hkv{spec['hkv']}_d{spec['d']}_"
+                    f"{peak_name}_{causal}]",
+            "route": "cuda", "source": FAB_SOURCE, "replaces": FAB_REPLACES,
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
+        del sets, q, k, v, o, do
+        torch.cuda.empty_cache()
+    return entries
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _train_counters():
+    from repro_torch.kernels import flash_attention as kfa
+    return {"fwd": kfa.flash_attention.launches,
+            "bwd": kfa.flash_attention_bwd.launches,
+            "fwd_plain": kfa.flash_attention_plain.calls,
+            "bwd_plain": kfa.flash_attention_bwd_plain.calls}
+
+
+def _zero_train_counters():
+    from repro_torch.kernels import flash_attention as kfa
+    kfa.flash_attention.launches = kfa.flash_attention_bwd.launches = 0
+    kfa.flash_attention_plain.calls = kfa.flash_attention_bwd_plain.calls = 0
+
+
+def _profile_step(fn):
+    """``fn()`` under ``torch.profiler`` (CUDA activity only): (device
+    busy ms, forward kernel ms, backward kernels ms, the top kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+    def ms(pred):
+        return sum(e.self_device_time_total for e in kern if pred(e.key)) / 1e3
+
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    return (ms(lambda k: True), ms(lambda k: "flash_attention" in k),
+            ms(lambda k: "fa_bwd" in k),
+            [(e.key[:50], e.count, e.self_device_time_total / 1e3)
+             for e in top])
+
+
+def _train_run(step_fn, state, stream, total, ckpt_dir=None):
+    """``run_train_loop`` to ``total`` steps, logging every step: (state,
+    [(step, loss, grad_norm)], [host seconds of each step]).  Every
+    step's loss and grad norm must be finite."""
+    from repro_torch.train import TrainLoopConfig, run_train_loop
+    rows, stamps = [], [time.perf_counter()]
+
+    def on_metrics(step, m):
+        stamps.append(time.perf_counter())
+        rows.append((step, m["loss"], m["grad_norm"]))
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"training step {step}: loss {m['loss']}, "
+                                 f"grad_norm {m['grad_norm']}")
+
+    loop = TrainLoopConfig(total_steps=total, checkpoint_every=10 ** 9,
+                           log_every=1, checkpoint_dir=ckpt_dir,
+                           async_checkpoint=False)
+    state, _ = run_train_loop(step_fn, state, stream, loop,
+                              on_metrics=on_metrics)
+    return state, rows, [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def phase2n_training():
+    """qwen2.5-3b training at full width, bf16, seeded weights, the affine
+    stream, batch 8 x seq 256, under ``torch.use_deterministic_algorithms``
+    (``CUBLAS_WORKSPACE_CONFIG=:4096:8``): at full depth (36 layers),
+    through ``run_train_loop``, 3 steps at accum 1 then 3 at accum 2
+    (counts set to 0 just before each run and read just after: 2 x 36 x
+    accum ``flash_attention`` launches a step, the forward again under
+    block remat, and 36 x accum ``flash_attention_bwd``; no plain
+    version), each step's host time, tokens/s, one step profiled
+    (device-busy ms, both kernels' ms, idle share) and the peak memory.
+    Then the restart at full width cut to ``TRAIN_RESTART_LAYERS``
+    layers (a full-depth snapshot is 31 GB, written and read twice):
+    4 steps at accum 2 uninterrupted, against 2 steps that leave a
+    checkpoint and a fresh state that resumes from it to step 4:
+    the resumed losses and the final params, ``m``, ``v`` and step
+    bit-identical."""
+    import shutil
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticConfig, SyntheticStream
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig, Schedule
+    from repro_torch.train import make_train_step, train_state_init
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg = get_config("qwen2.5-3b")
+        b, s = 8, 256
+        opt = AdamWConfig(
+            schedule=Schedule(peak_lr=3e-3, warmup_steps=20, decay_steps=6),
+            m_dtype="bfloat16" if cfg.fsdp else "float32",
+            factored_v=cfg.fsdp)
+        stream = SyntheticStream(cfg, b, s, SyntheticConfig(kind="affine"),
+                                 device="cuda")
+        model = build_model(cfg)
+        state = train_state_init(
+            model, opt, torch.Generator(device="cuda").manual_seed(0),
+            "cuda")
+        n_params = sum(t.numel() for t in bridge.flatten(
+            state["params"]).values())
+        log(f"[train 2n] {cfg.name}: {cfg.n_layers} layers, {n_params} "
+            f"params ({cfg.param_dtype}), batch {b} x seq {s}, AdamW m "
+            f"{opt.m_dtype}, factored v {opt.factored_v}")
+        out = {}
+        for accum in (1, 2):
+            step_fn = make_train_step(model, opt, accum_steps=accum)
+            torch.cuda.reset_peak_memory_stats()
+            _zero_train_counters()
+            state, rows, secs = _train_run(step_fn, state, stream, 3)
+            counts = _train_counters()
+            want = {"fwd": 3 * 2 * cfg.n_layers * accum,
+                    "bwd": 3 * cfg.n_layers * accum, "fwd_plain": 0,
+                    "bwd_plain": 0}
+            if counts != want:
+                raise AssertionError(f"2n accum {accum}: launches {counts}, "
+                                     f"expected {want}")
+            peak = torch.cuda.max_memory_allocated()
+            batch = stream.batch(3)
+            busy, fwd_ms, bwd_ms, top = _profile_step(
+                lambda: step_fn(state, batch))
+            _, wall = _timed(lambda: step_fn(state, batch))
+            step_s = statistics.median(secs[1:])
+            log(f"[train 2n] accum {accum}: steps {rows}; host s a step "
+                f"{[round(x, 4) for x in secs]} (median of the last two "
+                f"{step_s:.4f} s, {b * s / step_s:.1f} tokens/s); "
+                f"launches a step fwd {counts['fwd'] // 3} bwd "
+                f"{counts['bwd'] // 3}; one profiled step: device busy "
+                f"{busy:.2f} ms of {wall * 1e3:.2f} ms wall (idle "
+                f"{1 - busy / (wall * 1e3):.3f}), flash_attention "
+                f"{fwd_ms:.2f} ms, flash_attention_bwd {bwd_ms:.2f} ms; "
+                f"peak memory {peak / 2**30:.2f} GiB; top {top}")
+            out[accum] = {"step_s": step_s, "tok_s": b * s / step_s,
+                          "busy_ms": busy, "fwd_ms": fwd_ms,
+                          "bwd_ms": bwd_ms, "peak_gib": peak / 2**30,
+                          "fwd_launches": counts["fwd"] // 3,
+                          "bwd_launches": counts["bwd"] // 3}
+            del step_fn, batch
+        del state
+        torch.cuda.empty_cache()
+
+        cut = dataclasses.replace(cfg, n_layers=TRAIN_RESTART_LAYERS)
+        model = build_model(cut)
+        step_fn = make_train_step(model, opt, accum_steps=2)
+        ckpt = str(ROOT / "build" / "ckpt_2n")
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+        def fresh():
+            return train_state_init(
+                model, opt, torch.Generator(device="cuda").manual_seed(1),
+                "cuda")
+
+        straight, rows_u, _ = _train_run(step_fn, fresh(), stream, 4)
+        _, rows_a, _ = _train_run(step_fn, fresh(), stream, 2, ckpt)
+        ck_bytes = sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, fs in os.walk(ckpt) for f in fs)
+        resumed, rows_b, _ = _train_run(step_fn, fresh(), stream, 4, ckpt)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        if rows_a + rows_b != rows_u:
+            raise AssertionError(f"2n restart: losses {rows_a + rows_b} != "
+                                 f"uninterrupted {rows_u}")
+        got, want = bridge.flatten(resumed), bridge.flatten(straight)
+        for k in want:
+            if not torch.equal(_bits(got[k]), _bits(want[k])):
+                raise AssertionError(f"2n restart: {k} is not bit-identical")
+        log(f"[train 2n] restart at {TRAIN_RESTART_LAYERS} of "
+            f"{cfg.n_layers} layers, full width, accum 2: checkpoint at "
+            f"step 2 ({ck_bytes} bytes); resumed losses {rows_b} equal the "
+            f"uninterrupted run's, and {len(want)} leaves of params / m / v "
+            f"/ step bit-identical")
+        del straight, resumed, got, want
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase3i_train_parity():
+    """Training card against CPU in fp32, TF32 off: qwen2.5-3b at full
+    width cut to 2 layers, the same seeded weights and batches (2 x 64
+    tokens), 3 steps at accum 1 then 3 at accum 2, each step from the
+    same state on both sides (the CPU's, copied to the card after the
+    comparison).  After each step:
+    loss and grad_norm within rtol 1e-5; every param within rtol 1e-4 /
+    atol 1e-6 but for at most 1 element in 100 of a leaf, within 2 x the
+    summed lr (AdamW steps a gradient near 0 by its sign, so an element
+    whose gradient sits at the two devices' rounding moves by up to lr
+    either way: the full-width QKV biases hold such elements), and the
+    K bias, whose gradient is tiny everywhere (a bias on every key shifts
+    a query's scores by nearly one constant), within that bound; ``m``
+    and ``v`` within rtol 1e-4 / atol 1e-4 x the leaf's largest
+    magnitude; the step count equal."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig, Schedule
+    from repro_torch.train import make_train_step, train_state_init
+    cuda_tf32 = torch.backends.cuda.matmul.allow_tf32
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        model = build_model(cfg)
+        opt = AdamWConfig(schedule=Schedule(peak_lr=3e-3, warmup_steps=0,
+                                            decay_steps=10))
+        t0 = time.perf_counter()
+        cpu = train_state_init(model, opt, torch.Generator().manual_seed(0),
+                               "cpu")
+        card = bridge.unflatten({k: t.detach().to("cuda", copy=True)
+                                 for k, t in bridge.flatten(cpu).items()})
+        log(f"[train 3i] init on the CPU and copy to the card: "
+            f"{time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(9)
+        lr_sum, n = 0.0, 0
+        for accum in (1, 2):
+            steps = {dev: make_train_step(model, opt, accum_steps=accum)
+                     for dev in ("cpu", "cuda")}
+            for _ in range(3):
+                tokens = torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (2, 64)).astype(np.int32))
+                _zero_train_counters()
+                (card, mg), t_card = _timed(
+                    lambda: steps["cuda"](card, {"tokens": tokens.cuda()}))
+                counts = _train_counters()
+                t0 = time.perf_counter()
+                cpu, mc = steps["cpu"](cpu, {"tokens": tokens})
+                t_cpu, t0 = time.perf_counter() - t0, time.perf_counter()
+                n += 1
+                lr_sum += float(opt.schedule(n))
+                want_c = {"fwd": 2 * 2 * accum, "bwd": 2 * accum,
+                          "fwd_plain": 0, "bwd_plain": 0}
+                if counts != want_c:
+                    raise AssertionError(f"3i: card launches {counts}, "
+                                         f"expected {want_c}")
+                for name in ("loss", "grad_norm"):
+                    g, w = float(mg[name]), float(mc[name])
+                    if abs(g - w) > 1e-5 * abs(w):
+                        raise AssertionError(f"3i step {n}: {name} card {g} "
+                                             f"cpu {w}")
+                got = bridge.flatten(card)
+                worst, worst_frac = 0.0, (0.0, None)
+                for k, w in bridge.flatten(cpu).items():
+                    g, w = got[k].detach(), w.detach().to("cuda")
+                    if k == "opt/step":
+                        if int(g) != int(w):
+                            raise AssertionError(f"3i: step {g} != {w}")
+                        continue
+                    diff = (g - w).abs()
+                    if k.endswith("/attn/bk") and k.startswith("params"):
+                        ok = bool((diff <= 2 * lr_sum).all())
+                    elif k.startswith("params"):
+                        bad = diff > 1e-6 + 1e-4 * w.abs()
+                        frac = int(bad.sum()) / w.numel()
+                        ok = frac <= 0.01 and bool(
+                            (diff[bad] <= 2 * lr_sum).all())
+                        if frac > worst_frac[0]:
+                            worst_frac = (frac, k)
+                    else:
+                        tol = 1e-4 * float(w.abs().max())
+                        ok = bool((diff <= tol + 1e-4 * w.abs()).all())
+                    if not ok:
+                        raise AssertionError(
+                            f"3i step {n}: {k} max diff "
+                            f"{float(diff.max()):.3e}, "
+                            f"{int((diff > 1e-6 + 1e-4 * w.abs()).sum())} "
+                            f"of {w.numel()} beyond rtol 1e-4 / atol 1e-6 "
+                            f"(2 x summed lr {2 * lr_sum:.3e})")
+                    worst = max(worst, float(diff.max()))
+                log(f"[train 3i] step {n} (accum {accum}): loss card "
+                    f"{float(mg['loss']):.7f} cpu {float(mc['loss']):.7f}, "
+                    f"grad_norm card {float(mg['grad_norm']):.6f} cpu "
+                    f"{float(mc['grad_norm']):.6f}; state max abs diff "
+                    f"{worst:.3e}; params beyond rtol 1e-4 / atol 1e-6: at "
+                    f"most {worst_frac[0]:.4%} of a leaf ({worst_frac[1]}); "
+                    f"s card {t_card:.2f}, CPU {t_cpu:.2f}, compare "
+                    f"{time.perf_counter() - t0:.2f}")
+                # the next step starts from the same state on both sides,
+                # so each step is held alone (AdamW's sign steps above
+                # would otherwise move every later gradient)
+                with torch.no_grad():
+                    for k, w in bridge.flatten(cpu).items():
+                        got[k].copy_(w)
+        del card, cpu
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = cuda_tf32
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    # cuBLAS's fixed workspace, which deterministic mode (phase 2n)
+    # requires; read when cuBLAS starts, so set before any product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     from repro_torch import compat
     from repro_torch.configs import get_config
@@ -3668,7 +4146,8 @@ def main() -> int:
     ssd_entries = phase1e_ssd_scan(model)
     fa_entries = phase1f_flash_attention(model)
     modal_entries = phase1g_modal_shapes(hbm, peak_bf16)
-    stamp("1-1g")
+    fab_entries = phase1h_flash_attention_bwd(model)
+    stamp("1-1h")
 
     # ---- 2: full-width serving, then the GEMM path ------------------- #
     cfg = get_config("gptneox-1b")
@@ -3712,6 +4191,8 @@ def main() -> int:
     stamp("2l")
     spec = phase2m_speculation()
     stamp("2m")
+    train = phase2n_training()
+    stamp("2n")
     modal_paths = {
         "2k seamless dense serving": seamless["dense"]["launches"],
         "2k seamless float8_e4m3fn serving": seamless["float8_e4m3fn"][
@@ -3754,8 +4235,15 @@ def main() -> int:
                           "ssd_launches"],
                       "2m mamba2 n-gram serving": spec["mamba2 n-gram"][
                           "launches"]["ssd_scan"]}
+    train_paths = {f"2n qwen2.5-3b training accum {a}": t for a, t in
+                   train.items()}
+    for e in fab_entries:
+        e["launches"] = train[1]["bwd_launches"]
+        e["paths"] = {k: t["bwd_launches"] for k, t in train_paths.items()}
     for e in fa_entries:
         e["paths"] = {"2e gptneox-1b whole sequence": e["launches"],
+                      **{k: t["fwd_launches"]
+                         for k, t in train_paths.items()},
                       "2h jamba whole sequence": jamba["whole"][
                           "fa_launches"],
                       "2k seamless whole sequence": modal_paths[
@@ -3776,7 +4264,8 @@ def main() -> int:
     phase3f_moe_parity()
     phase3g_modal_parity()
     phase3h_spec_parity(model3, params3)
-    stamp("3-3h")
+    phase3i_train_parity()
+    stamp("3-3i")
 
     # ---- 4: the probe suite -------------------------------------------- #
     counts = phase4_characterize()
@@ -3791,7 +4280,8 @@ def main() -> int:
         log(line)
     print(json.dumps({"kernels": [*fd_entries, *fdq_entries, *qmm_entries,
                                   *probe_entries, *ssd_entries,
-                                  *fa_entries, *modal_entries]}))
+                                  *fa_entries, *modal_entries,
+                                  *fab_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,5 @@
-"""Weight bridge between the reference's parameter pytree and the port's.
+"""Weight bridge between the reference's parameter pytree and the port's,
+and of the train state (params and AdamW state) both ways.
 
 Both packages keep the same nested-dict layout (same keys, same shapes),
 so a tree crosses as a flat ``{"a/b/c": array}`` dict keyed as
@@ -93,4 +94,32 @@ def params_to_numpy(params: dict) -> Dict[str, np.ndarray]:
         if t.dtype == torch.bfloat16:
             t = t.float()
         out[k] = t.numpy()
+    return out
+
+
+def train_state_from_numpy(flat: Dict[str, np.ndarray], cfg: ArchConfig,
+                           device="cpu") -> dict:
+    """The reference's flattened train state (``params/...``,
+    ``opt/m/...``, ``opt/v/...`` with a factored leaf's ``.../row`` and
+    ``.../col``, ``opt/step``) -> the port's ``{"params", "opt"}`` on
+    ``device``, each leaf at its own dtype; the params are checked as
+    :func:`params_from_numpy` checks them and require grad."""
+    params = params_from_numpy(
+        {k[len("params/"):]: v for k, v in flat.items()
+         if k.startswith("params/")}, cfg, device)
+    for t in flatten(params).values():
+        t.requires_grad_(True)
+    opt = unflatten({k[len("opt/"):]: _to_tensor(v, device, None)
+                     for k, v in flat.items() if k.startswith("opt/")})
+    return {"params": params, "opt": opt}
+
+
+def train_state_to_numpy(state: dict) -> Dict[str, np.ndarray]:
+    """The port's train state -> the flat numpy dict keyed as the
+    reference's checkpointer keys it; bf16 leaves come out as float32
+    arrays holding the same values."""
+    out = {}
+    for k, t in flatten(state).items():
+        t = t.detach().cpu()
+        out[k] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return out

@@ -26,6 +26,17 @@ A row with no visible key (possible only with ``q_offset`` or a window)
 comes out as zeros from the kernel and as the mean of V from the plain
 version, as in the reference's Pallas kernel and XLA path; the model
 never produces such a row (causal rows always see themselves).
+
+Training: with grad enabled and an input that requires it,
+:func:`flash_attention` runs through :class:`FlashAttentionFn`, whose
+forward is the same dispatch and whose backward is
+:func:`flash_attention_bwd`: on the CPU :func:`flash_attention_bwd_plain`
+(the explicit formulas in fp32), on a CUDA device the hand-written
+kernel ``csrc/flash_attention_bwd.cu`` (the reference differentiates its
+XLA ``attention()``; there is no Pallas backward).  A ``q_offset`` with
+a gradient raises.  ``flash_attention_bwd.launches`` counts backward
+launches.  With grad disabled nothing changes: the forward runs as
+before, with no autograd node.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.models.attention import attention, full_attention
+from repro_torch.models.attention import NEG_INF, attention, full_attention
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}    # elements per 16 bytes
@@ -244,18 +255,7 @@ def wgmma_rs_unit_tile(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return d
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None,
-                    scale: Optional[float] = None, q_offset: int = 0,
-                    chunk: int = 1024) -> torch.Tensor:
-    """Whole-sequence attention in the model layout: q (b, sq, hq, d),
-    k / v (b, skv, hkv, d) -> (b, sq, hq, d) at q's dtype.  Queries sit
-    at positions ``q_offset + arange(sq)``, keys at ``arange(skv)``.
-    ``chunk`` is the plain version's KV block (the kernel tiles by
-    itself).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+def _forward(q, k, v, causal, window, softcap, scale, q_offset, chunk):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale,
@@ -266,4 +266,200 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      f"(plain version), not {q.device}")
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` differentiable in q, k and v: the forward
+    dispatch, and :func:`flash_attention_bwd` from the saved q, k, v and
+    output.  Queries sit at 0..sq-1."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, chunk):
+        o = _forward(q, k, v, causal, window, softcap, scale, 0, chunk)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.flags = dict(causal=causal, window=window, softcap=softcap,
+                         scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         **ctx.flags)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    chunk: int = 1024) -> torch.Tensor:
+    """Whole-sequence attention in the model layout: q (b, sq, hq, d),
+    k / v (b, skv, hkv, d) -> (b, sq, hq, d) at q's dtype.  Queries sit
+    at positions ``q_offset + arange(sq)``, keys at ``arange(skv)``.
+    ``chunk`` is the plain version's KV block (the kernel tiles by
+    itself).  CPU tensors take the plain version; CUDA tensors launch
+    the kernel.  With grad enabled and an input that requires it, the
+    result is differentiable (:class:`FlashAttentionFn`); ``q_offset``
+    then raises."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q_offset:
+            raise NotImplementedError(
+                "flash_attention: no backward with q_offset != 0 (no "
+                "training path uses one)")
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap,
+                                      scale, chunk)
+    return _forward(q, k, v, causal, window, softcap, scale, q_offset, chunk)
+
+
 flash_attention.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# Backward
+# --------------------------------------------------------------------- #
+
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 15
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_void_p])
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              softcap: Optional[float] = None,
+                              scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The backward kernel's function in plain PyTorch, in fp32 whatever
+    the inputs' dtype: with ``t = tanh(scale q·k / c)`` under a softcap
+    ``c``, ``s`` the capped score, ``P = exp(s - lse)`` on the visible
+    (query, key) pairs and 0 elsewhere, ``D = rowsum(dO * O)``:
+    ``dV = P^T dO``, ``dS = P (dO V^T - D) (1 - t^2)``, ``dQ = scale dS
+    K``, ``dK = scale dS^T Q``; dK and dV sum over the q heads of a GQA
+    group.  Returns (dq, dk, dv) at the inputs' dtypes."""
+    flash_attention_bwd_plain.calls += 1
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    f32 = torch.float32
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, d)
+    dog = do.float().reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    q_pos = torch.arange(sq, device=q.device)
+    k_pos = torch.arange(skv, device=q.device)
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        ok &= q_pos[:, None] - k_pos[None, :] < window
+    s = s.masked_fill(~ok, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - lse), torch.zeros((), dtype=f32,
+                                                         device=q.device))
+    delta = (do.float() * o.float()).sum(-1)               # (b, sq, hq)
+    delta = delta.reshape(b, sq, hkv, hq // hkv).permute(0, 2, 3, 1)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = p * (dp - delta[..., None])
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+flash_attention_bwd_plain.calls = 0
+
+
+def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, do: torch.Tensor,
+                     window: Optional[int]) -> None:
+    """Raise on what the backward kernel does not take: shapes (o and dO
+    as q), head_dim above ``MAX_D``, dtypes (all float32 or all
+    bfloat16), a head_dim that is not the unit-stride axis, tensors on
+    two devices, a window below 1."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
+            or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"shapes: q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} o {tuple(o.shape)} do "
+                         f"{tuple(do.shape)}")
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hkv < 1 or hq % hkv:
+        raise ValueError(f"shapes: q {tuple(q.shape)} k {tuple(k.shape)}: "
+                         f"batch and head_dim must agree, hq % hkv == 0")
+    if d > MAX_D or q.dtype not in _DTYPE_CODE or any(
+            t.dtype != q.dtype for t in (k, v, o, do)):
+        raise TypeError(f"backward kernel takes head_dim <= {MAX_D} and q, "
+                        f"k, v, o, do all float32 or all bfloat16; got d "
+                        f"{d}, {[t.dtype for t in (q, k, v, o, do)]}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 (window={window})")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: head_dim must be the unit-stride "
+                             f"axis (strides {t.stride()})")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def _bwd_kernel(q, k, v, o, do, causal, window, softcap, scale):
+    check_bwd_inputs(q, k, v, o, do, window)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.repro_flash_attention_bwd
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, skv, hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), b, sq, skv, hq, hkv, d,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *o.stride()[:3], *do.stride()[:3], scale, bool(causal),
+                 window is not None, window or 0, softcap is not None,
+                 softcap or 0.0, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention` (queries at 0..sq-1) from
+    its inputs, its output ``o`` and the output's gradient ``do``, at
+    the inputs' dtype.  CPU tensors take
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch the kernel."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         window=window, softcap=softcap,
+                                         scale=scale)
+    if q.device.type == "cuda":
+        return _bwd_kernel(q, k, v, o, do, causal, window, softcap, scale)
+    raise ValueError(f"flash_attention_bwd runs on 'cuda' (kernel) or "
+                     f"'cpu' (plain version), not {q.device}")
+
+
+flash_attention_bwd.launches = 0

@@ -203,7 +203,9 @@ def ssd_scan(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     seeds the scan (zeros when omitted).  s is padded to the chunk with
     an identity tail.  Returns (y (bt, s, h, p) at x's dtype,
     final_state (bt, h, p, n) fp32).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version (differentiable: plain torch ops); CUDA tensors launch the
+    kernel, which has no backward: with grad enabled and a CUDA input
+    that requires it, this raises."""
     s = x.shape[1]
     pad = (-s) % chunk
     if pad:
@@ -211,6 +213,13 @@ def ssd_scan(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
         dt_a = F.pad(dt_a, (0, 0, 0, pad))
         b = F.pad(b, (0, 0, 0, pad))
         c = F.pad(c, (0, 0, 0, pad))
+    if x.device.type != "cpu" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt_a, b, c, initial_state)):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet (ROADMAP: the next "
+            "training slice): its CUDA kernel's output carries no "
+            "gradient, so a card input that requires grad is refused")
     if x.device.type == "cpu":
         y, state = ssd_scan_plain(x, dt_a, b, c, chunk, initial_state)
     elif x.device.type == "cuda":

@@ -67,6 +67,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.compat import resolve_dtype
 from repro_torch.configs.base import ArchConfig, BlockSpec
@@ -238,6 +239,38 @@ def apply_block(p: dict, blk: BlockSpec, cfg: ArchConfig, x: torch.Tensor,
     return apply_ffn(p, blk, cfg, x)
 
 
+def _needs_grad(*trees) -> bool:
+    """Whether a tensor in the nested dicts / tensors requires grad."""
+    for t in trees:
+        if isinstance(t, dict):
+            if _needs_grad(*t.values()):
+                return True
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            return True
+    return False
+
+
+def _remat_block(p: dict, blk: BlockSpec, cfg: ArchConfig, x: torch.Tensor,
+                 enc_out: Optional[torch.Tensor] = None, causal: bool = True
+                 ) -> Tuple[torch.Tensor, dict]:
+    """:func:`apply_block`, rematerialised in the backward when a
+    gradient is wanted (grad enabled and an input or a weight of the
+    block requires it) and ``cfg.remat`` is not "none" (the reference's
+    ``_remat_wrap``): only the block's inputs are kept, and its forward
+    (each ``flash_attention`` launch included) runs again in the
+    backward.  Both "block" and "full" keep nothing inside the block:
+    torch has no counterpart of the reference's policy that saves the
+    weight products, and the values are the same either way.  Otherwise
+    (serving, or grad disabled) this is :func:`apply_block`."""
+    # jaxlint: disable=JL102(eager torch: requires_grad is metadata)
+    if (cfg.remat != "none" and torch.is_grad_enabled()
+            and _needs_grad(x, enc_out, p)):
+        return torch.utils.checkpoint.checkpoint(
+            apply_block, p, blk, cfg, x, enc_out, causal,
+            use_reentrant=False)
+    return apply_block(p, blk, cfg, x, enc_out=enc_out, causal=causal)
+
+
 def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig
            ) -> torch.Tensor:
     """The bidirectional encoder over frame embeddings (b, s_src,
@@ -248,8 +281,8 @@ def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig
     enc = params["encoder"]
     x = frames.to(resolve_dtype(cfg.compute_dtype))
     for layer in range(cfg.n_encoder_layers):
-        x, _ = apply_block(_at(enc["layers"], layer), ENC_BLOCK, cfg, x,
-                           causal=False)
+        x, _ = _remat_block(_at(enc["layers"], layer), ENC_BLOCK, cfg, x,
+                            causal=False)
     return rms_norm(enc["final_norm"], x, cfg.norm_eps)
 
 
@@ -278,8 +311,8 @@ def lm_features(params: dict, batch: Dict[str, torch.Tensor],
     aux = _zero_aux(x.device)
     for layer in range(cfg.n_periods):
         for i, blk in enumerate(cfg.block_pattern()):
-            x, a = apply_block(_at(params["layers"][f"pos{i}"], layer), blk,
-                               cfg, x, enc_out=enc_out)
+            x, a = _remat_block(_at(params["layers"][f"pos{i}"], layer),
+                                blk, cfg, x, enc_out=enc_out)
             for name, v in a.items():
                 aux[name] = aux[name] + v
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)

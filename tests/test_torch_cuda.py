@@ -1364,3 +1364,101 @@ def test_cache_write_rows_card_matches_cpu(cuda, fmt):
                     else t.cpu() for n, t in cache.items()}
     for name, want in out["cpu"].items():
         assert torch.equal(out["cuda"][name], want), name
+
+
+# (b, s, hq, hkv, d, dtype, flags, q scale): the training path's own
+# shape, row 5's prefill shape, gemma2's head_dim with its window and
+# softcap, the seamless encoder's non-causal d 64, fp32, and fp32 with a
+# softcap the scores reach (q scaled by 4: scores of sd 4 against a cap
+# of 5, so the chain factor 1 - t^2 spans ~1 to ~0; at softcap 50 it
+# stays near 1 and a backward without it would pass)
+FA_BWD_CASES = {
+    "a_qwen_train": (8, 256, 16, 2, 128, torch.bfloat16, {}, 1.0),
+    "b_row5": (8, 2048, 16, 16, 128, torch.bfloat16, {}, 1.0),
+    "c_d256_window_softcap": (2, 1024, 8, 4, 256, torch.bfloat16,
+                              dict(window=512, softcap=50.0), 1.0),
+    "d_non_causal_d64": (4, 1000, 16, 16, 64, torch.bfloat16,
+                         dict(causal=False), 1.0),
+    "e_fp32": (4, 512, 16, 2, 128, torch.float32, {}, 1.0),
+    "f_fp32_softcap5_q4": (2, 512, 8, 2, 128, torch.float32,
+                           dict(softcap=5.0), 4.0),
+}
+
+
+@pytest.mark.parametrize("case", list(FA_BWD_CASES))
+def test_flash_attention_bwd_matches_plain(cuda, case):
+    """``flash_attention_bwd`` against ``flash_attention_bwd_plain`` (fp32
+    formulas on the same inputs): bf16 atol 1e-2 x the largest |grad|
+    (the outputs' bf16 rounding, ~2^-9 relative, and bf16 inputs read
+    alike on both sides), fp32 atol 1e-5 x the largest |grad| (summation
+    order); two calls bit-identical (no atomics)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    b, s, hq, hkv, d, dtype, flags, q_scale = FA_BWD_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(len(case))
+    q = (q_scale * torch.randn((b, s, hq, d), generator=g,
+                               device=cuda)).to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    o = flash_attention(q, k, v, **flags)
+    do = torch.randn(o.shape, generator=g, device=cuda).to(dtype)
+    got = flash_attention_bwd(q, k, v, o, do, **flags)
+    again = flash_attention_bwd(q, k, v, o, do, **flags)
+    want = flash_attention_bwd_plain(q, k, v, o, do, **flags)
+    torch.cuda.synchronize()
+    frac = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for name, x, y, z in zip("qkv", got, again, want):
+        assert torch.equal(x, y), f"d{name}: two calls differ"
+        scale = z.float().abs().max().item()
+        torch.testing.assert_close(x.float(), z.float(), rtol=0,
+                                   atol=frac * scale, msg=f"d{name}")
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """One fp32 train step of qwen2.5-3b reduced (TF32 off), card
+    against CPU from the same state and batch: loss and grad_norm rtol
+    1e-5, every param rtol 1e-4 / atol 1e-6 but for at most 1 element
+    in 1000 of a leaf within 2 lr (a gradient at rounding level steps by
+    its sign), the K bias (a tiny gradient everywhere) within 2 lr, m and
+    v rtol 1e-4 / atol 1e-5 x the leaf's largest magnitude."""
+    from repro_torch import bridge
+    from repro_torch.optim import AdamWConfig, Schedule
+    from repro_torch.train import make_train_step, train_state_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen2.5-3b").reduced()
+    model = build_model(cfg)
+    opt = AdamWConfig(schedule=Schedule(peak_lr=3e-3, warmup_steps=0,
+                                        decay_steps=10))
+    lr = float(opt.schedule(1))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32))
+                              .astype(np.int32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = train_state_init(model, opt, torch.Generator().manual_seed(0),
+                                 "cpu")
+        state = bridge.train_state_from_numpy(
+            bridge.train_state_to_numpy(state), cfg, dev)
+        state, m = make_train_step(model, opt, accum_steps=2)(
+            state, {"tokens": tokens.to(dev)})
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    bridge.train_state_to_numpy(state))
+    (mc, sc), (mg, sg) = out["cpu"], out["cuda"]
+    for name in ("loss", "grad_norm"):
+        assert mg[name] == pytest.approx(mc[name], rel=1e-5)
+    for key, want in sc.items():
+        got = sg[key]
+        if key.startswith("params") and key.endswith("/attn/bk"):
+            np.testing.assert_allclose(got, want, atol=2 * lr, rtol=0,
+                                       err_msg=key)
+        elif key.startswith("params"):
+            bad = np.abs(got - want) > 1e-6 + 1e-4 * np.abs(want)
+            assert bad.sum() <= want.size // 1000, key
+            np.testing.assert_allclose(got[bad], want[bad], atol=2 * lr,
+                                       rtol=0, err_msg=key)
+        else:
+            np.testing.assert_allclose(
+                got, want, rtol=1e-4,
+                atol=1e-5 * float(np.abs(want).max(initial=0.0)),
+                err_msg=key)

@@ -23,6 +23,7 @@ from repro_torch.kernels import qmatmul as qm
 from repro_torch.kernels import ssd_scan as kss
 from repro_torch.models import attention as attn
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models.model import build_model
 from repro_torch.serve import AdmissionConfig, ServeEngine, faults
 
@@ -428,3 +429,58 @@ def test_spec_engine_defaults_to_the_card(no_card, draft):
     with pytest.raises(NotImplementedError, match="mesh"):
         ServeEngine(model, params, batch=1, max_seq=16, spec=spec,
                     device="cpu", mesh=object())
+
+
+def test_training_modules_are_checked():
+    """The training slice's modules are among the files the import
+    check reads."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/train/step.py",
+            "src/repro_torch/train/loop.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/checkpoint/checkpointer.py",
+            "src/repro_torch/distributed/elastic.py",
+            "src/repro_torch/data/packing.py",
+            "src/repro_torch/launch/train.py"} <= names
+
+
+def test_train_launcher_defaults_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--reduced", "--steps", "1"])
+
+
+def test_flash_attention_bwd_without_library_raises(monkeypatch):
+    """The backward kernel's path with no compiler to build its library
+    raises; it does not fall back to the plain backward, and counts no
+    launch and no plain call."""
+    monkeypatch.setattr(compat, "nvcc_path", lambda: None)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR / "absent")
+    before = (kfa.flash_attention_bwd.launches,
+              kfa.flash_attention_bwd_plain.calls)
+    g = torch.Generator().manual_seed(5)
+    q, o, do = torch.randn(3, 1, 8, 4, 16, generator=g)
+    k, v = torch.randn(2, 1, 8, 2, 16, generator=g)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kfa._bwd_kernel(q, k, v, o, do, True, None, None, 0.25)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("flash_attention_bwd")
+    assert (kfa.flash_attention_bwd.launches,
+            kfa.flash_attention_bwd_plain.calls) == before
+
+
+def test_ssd_scan_refuses_device_inputs_that_need_grad():
+    """Off the CPU, an input that requires grad is refused (the kernel
+    has no backward yet) before any dispatch; without grad the meta
+    device is refused as before; on the CPU the plain version stays
+    differentiable."""
+    x, dt_a, b, c, state = _ssd_inputs("meta")
+    with pytest.raises(NotImplementedError, match="no backward"):
+        kss.ssd_scan(x.requires_grad_(True), dt_a, b, c, 40, state)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="cuda"):
+            kss.ssd_scan(x, dt_a, b, c, 40, state)
+    x, dt_a, b, c, state = _ssd_inputs()
+    y, _ = kss.ssd_scan(x.requires_grad_(True), dt_a, b, c, 40, state)
+    (gx,) = torch.autograd.grad(y.sum(), x)
+    assert torch.isfinite(gx).all()
