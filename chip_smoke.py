@@ -92,7 +92,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    sq 128 over skv 640; (h) d 256.  Tolerances of the reference's kernel
    test: fp32 atol 2e-5; bf16 atol 2e-2 (the plain version rounds the
    normalized p to bf16 before PV, the kernel the running-max p); a row
-   that sees no key must be 0.  At (a) and (b) it times the kernel, the
+   that sees no key must be 0.  Every case but (g) also runs
+   ``flash_attention_lse`` (the call that stores the LSE, training's
+   forward), held to the same tolerance and to the first call's bits.
+   At (a) and (b) it times the kernel, that call (``<case>_lse``), the
    plain version and, as a yardstick only, SDPA with ``is_causal``,
    beside the bound (bytes of q, k, v and out at the HBM rate; 4 d flops
    per visible (query, key) pair at the bf16 tensor-core or fp32 vector
@@ -107,16 +110,22 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    1000; (z) non-causal cross-attention of 16 queries over 1000 keys;
 1h. ``flash_attention_bwd`` (the training path's backward kernel)
    against ``flash_attention_bwd_plain`` (the explicit formulas in fp32
-   on the same inputs): (a) qwen2.5-3b's training shape b 8, s 256, hq
-   16 over hkv 2, d 128, bf16, causal; (b) row 5's b 8, s 2048, hq = hkv
-   = 16, d 128; (c) d 256 with window 512 and softcap 50; (d) non-causal
+   on the same inputs), given the output and LSE that the forward kernel
+   stored (``flash_attention_lse``), first held to the plain output
+   (1f's tolerances) and the plain LSE (``attention_lse_plain``, fp32,
+   atol 1e-4): (a) qwen2.5-3b's
+   training shape b 8, s 256, hq 16 over hkv 2, d 128, bf16, causal; (b)
+   row 5's b 8, s 2048, hq = hkv = 16, d 128; (c) d 256 with window 512 and softcap 50; (d) non-causal
    d 64 (the seamless encoder, s 1000); (e) fp32; (f) fp32 with softcap 5
    over scores of sd 4 (q scaled by 4), where the chain factor 1 - t^2
    spans ~1 to ~0.  Tolerance: bf16 atol 1e-2 x the largest |grad|,
-   fp32 atol 1e-5 x the largest |grad|; two calls bit-identical.  Each case timed (kernel, plain version, and, as
-   a yardstick only, the backward of SDPA where it takes the case)
-   beside the bound (q, k, v, o, dO, dq, dk, dv at the HBM rate; 10 d
-   flops per visible (query, key) pair at the bf16 or fp32 peak);
+   fp32 atol 1e-5 x the largest |grad|; two calls bit-identical.  Each
+   case's launch plan (``bwd_plan``: blocks, the q-head split), then
+   its time (kernel, plain version, and, as a yardstick only, the
+   backward of SDPA where it takes the case) beside the bound (q, k, v,
+   o, dO, dq, dk, dv at the HBM rate; 10 d flops per visible (query,
+   key) pair at the bf16 or fp32 peak), and its passes' device times
+   from a profile (D, dK / dV, the split's reduce, dQ);
 2. full-width gptneox-1b (16 layers, d_model 2048, vocab 50432, bf16,
    seeded random weights) through ``ServeEngine.run`` on the card: 8
    requests x 256-token prompts x 64 new tokens, batch 8, max_seq 1024,
@@ -228,11 +237,12 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    1792 tokens), 24 ``flash_attention`` launches a call;
 2m. speculative serving at full width, bf16, seeded weights, batch 8,
    max_seq 1024, prefill chunks of 256, 8 period-3 cyclic 256-token
-   prompts (a phase a request) x 64 new tokens: gptneox-1b with n-gram
-   drafting (``SpecConfig()``: 4 drafts, a table of 512) over dense and
-   over fp8 KV, and drafting for itself (3 drafts); mamba2-2.7b cut to
-   ``CUT_LAYERS`` layers (from PR 26; it served all 64 before) with
-   n-gram drafting; each beside the same traffic without
+   prompts (a phase a request) x 64 new tokens: gptneox-1b cut to
+   ``CUT_LAYERS`` of its 16 layers with n-gram drafting
+   (``SpecConfig()``: 4 drafts, a table of 512) over dense and over fp8
+   KV, and drafting for itself (3 drafts); mamba2-2.7b cut to
+   ``CUT_LAYERS`` of its 64 layers with n-gram drafting; each beside
+   the same traffic without
    speculation.  Decode tok/s, blocks, ``mean_accepted_len``, wall and
    profiled device ms a block, kernels a block, idle share, and per
    request the first index where the speculative stream leaves the
@@ -249,9 +259,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    batch 8 x seq 256, under ``torch.use_deterministic_algorithms``:
    ``run_train_loop`` 3 steps at accum 1, then 3 at accum 2; exactly
    2 x 36 x accum ``flash_attention`` launches a step (block remat runs
-   each forward twice) and 36 x accum ``flash_attention_bwd``, no plain
-   version; a finite loss and grad norm every step; host s a step,
-   tokens/s, one step profiled (device-busy ms, both kernels' ms, idle
+   each forward twice, both storing the LSE) and 36 x accum
+   ``flash_attention_bwd``, no plain version; a finite loss and grad
+   norm every step; host s a step, tokens/s, one step profiled
+   (device-busy ms, both kernels' ms, the backward's by pass, idle
    share), peak memory.  Then checkpoint / restart at full width cut to
    ``TRAIN_RESTART_LAYERS`` layers: 2 steps leave a checkpoint, a fresh
    state resumes from it to step 4, and its losses and final params /
@@ -332,6 +343,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -380,7 +392,7 @@ COLD_BYTES = 120e6          # input sets cycled per timing: > the 50 MB L2
 # (qwen2.5-3b, llama3.2-3b, gemma-2b: 36, 28, 18) and 2k (seamless: 12
 # encoder and 12 decoder layers) are cut to, so that the whole run,
 # speculation (2m, 3h) included, stays well inside its time limit on a
-# slow host; 2m serves mamba2-2.7b at the same cut
+# slow host; 2m serves gptneox-1b and mamba2-2.7b at the same cut
 CUT_LAYERS = 8
 # the depth of phase 2n's restart check (a full-depth qwen2.5-3b train
 # state is 31 GB a snapshot; at 2 layers ~4.7 GB, the embedding's share)
@@ -1272,9 +1284,14 @@ def phase1f_flash_attention(model):
     (tolerances of the reference's kernel test: fp32 atol 2e-5, bf16 atol
     2e-2, on the rows that see a key; a row that sees none must be 0),
     then the times at (a) and (b): kernel, plain version and SDPA with
-    ``is_causal`` (a yardstick; the port never calls it)."""
+    ``is_causal`` (a yardstick; the port never calls it), and the kernel
+    again storing each row's LSE as training's forward does
+    (``flash_attention_lse``, entries ``<case>_lse``; every case without
+    a ``q_offset`` also holds that call's output to the plain version
+    and to the call storing no LSE, bit for bit)."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_plain, wgmma_rs_unit_tile)
+        flash_attention, flash_attention_lse, flash_attention_plain,
+        wgmma_rs_unit_tile)
     hbm, peak_bf16 = model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"]
     peak_f32 = model.vector_flops["float32"]
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1329,6 +1346,25 @@ def phase1f_flash_attention(model):
         torch.testing.assert_close(got[:, rows].float(),
                                    want[:, rows].float(), atol=atol,
                                    rtol=0.0)
+        if not flags.get("q_offset"):
+            # the call that also stores the LSE (training's forward): its
+            # own error against the plain version, and the same bits
+            got_lse, _ = flash_attention_lse(q, k, v, **flags)
+            torch.cuda.synchronize()
+            err = (got_lse[:, rows].float() - want[:, rows].float()).abs()
+            errors[case + "_lse"] = err.max().item()
+            log(f"[kernel] flash_attention_lse {case}: max_abs_err "
+                f"{errors[case + '_lse']:.3e} (tol atol {atol}); the same "
+                f"bits as the call storing no LSE: "
+                f"{torch.equal(got_lse, got)}")
+            torch.testing.assert_close(got_lse[:, rows].float(),
+                                       want[:, rows].float(), atol=atol,
+                                       rtol=0.0)
+            if not torch.equal(got_lse, got):
+                raise AssertionError(f"flash_attention_lse {case}: the "
+                                     f"output differs from the call that "
+                                     f"stores no LSE")
+            del got_lse
         del q, k, v, got, want
     torch.cuda.empty_cache()
 
@@ -1344,6 +1380,7 @@ def phase1f_flash_attention(model):
             return flash_attention(q, k, v)
 
         ms = time_ms(kern, sets)
+        lse_ms = time_ms(lambda q, k, v: flash_attention_lse(q, k, v), sets)
         plain_ms = time_ms(flash_attention_plain, sets[:2], reps=5, n=2)
         sdpa_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
                      for s in sets]
@@ -1360,15 +1397,18 @@ def phase1f_flash_attention(model):
             f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
             f"sdpa is_causal {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}: {moved} B at {hbm / 1e12:g} TB/s, {flops} flop "
-            f"at {peak_name} {peak / 1e12:g} TFLOP/s); {len(sets)} input "
-            f"sets")
-        entries.append({
-            "name": f"flash_attention[{case},b{spec['b']}_s{spec['sq']}_hq"
-                    f"{spec['hq']}_d{spec['d']}_causal]",
-            "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
-            "launches": None, "max_abs_err": errors[case], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms})
+            f"at {peak_name} {peak / 1e12:g} TFLOP/s); with the LSE store "
+            f"{lse_ms:.4f} ms; {len(sets)} input sets")
+        for suffix, t in (("", ms), ("_lse", lse_ms)):
+            entries.append({
+                "name": f"flash_attention[{case}{suffix},b{spec['b']}_s"
+                        f"{spec['sq']}_hq{spec['hq']}_d{spec['d']}_causal]",
+                "route": "cuda", "source": FA_SOURCE,
+                "replaces": FA_REPLACES, "launches": None,
+                "max_abs_err": errors[case + suffix], "ms": t,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms})
         del sets, base, q
         torch.cuda.empty_cache()
     return entries
@@ -3435,7 +3475,7 @@ def _no_sync_block(eng, prompts, label):
 
 def phase2m_speculation():
     """Speculative serving at full width, bf16, seeded weights: gptneox-1b
-    (full depth) and mamba2-2.7b (cut to ``CUT_LAYERS`` layers), batch 8,
+    and mamba2-2.7b, both cut to ``CUT_LAYERS`` layers, batch 8,
     max_seq 1024, prefill chunks
     of 256, 8 cyclic 256-token prompts x 64 new tokens, each speculative
     run beside the non-speculative run of the same traffic."""
@@ -3456,7 +3496,7 @@ def phase2m_speculation():
     none = (lambda steps, s: 0)
     out = {}
 
-    cfg = get_config("gptneox-1b")
+    cfg = dataclasses.replace(get_config("gptneox-1b"), n_layers=CUT_LAYERS)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
@@ -3674,9 +3714,45 @@ def _fa_bwd_bound(spec, flags, hbm, peak):
     return ms, by, moved, flops
 
 
+def _bwd_passes(prof_kern) -> dict:
+    """{backward pass kernel: (device ms, launches)} of a profile's CUDA
+    kernel events (``fa_bwd_dot`` (A), ``fa_bwd_dkdv(_tc)`` (B),
+    ``fa_bwd_reduce`` (R), ``fa_bwd_dq(_tc)`` (C))."""
+    out = {}
+    for e in prof_kern:
+        m = re.search(r"fa_bwd_\w+?_kernel", e.key)
+        if m:
+            ms, n = out.get(m.group(0), (0.0, 0))
+            out[m.group(0)] = (ms + e.self_device_time_total / 1e3,
+                               n + e.count)
+    return out
+
+
+def _profile_bwd(fn, calls: int = 4) -> dict:
+    """``fn()`` ``calls`` times under ``torch.profiler`` (CUDA activity),
+    queued behind ``torch.cuda._sleep`` (the profiler has dropped the
+    first kernels of a window): {pass kernel: (device ms a launch,
+    launches recorded)}, each pass launching once a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    passes = _bwd_passes([e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA])
+    return {k: (ms / n, n) for k, (ms, n) in passes.items()}
+
+
 def phase1h_flash_attention_bwd(model):
     """``flash_attention_bwd`` against ``flash_attention_bwd_plain`` (the
-    explicit formulas in fp32 on the same inputs) on the card: (a) the
+    explicit formulas in fp32 on the same inputs, the plain version's own
+    LSE), given the output and LSE that ``flash_attention_lse`` (the
+    forward kernel) stored, first held to ``flash_attention_plain`` (bf16
+    atol 2e-2, fp32 2e-5, as 1f) and ``attention_lse_plain`` (fp32, atol
+    1e-4), on the card: (a) the
     training path's shape, qwen2.5-3b at b 8, s 256, hq 16 over hkv 2,
     d 128, bf16, causal; (b) row 5's shape, b 8, s 2048, hq = hkv = 16,
     d 128, bf16, causal; (c) d 256 with window 512 and softcap 50 (gemma2's
@@ -3690,9 +3766,13 @@ def phase1h_flash_attention_bwd(model):
     (summation order); two calls bit-identical (no atomics).  Each case
     timed (kernel, plain version, the backward of SDPA where SDPA takes
     the case, which it does not under a window or a softcap: a yardstick
-    the port never calls) beside its bound."""
+    the port never calls) beside its bound, and its passes' device times
+    read from a profile (the dQ pass's share of the call)."""
+    from repro_torch import compat
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+        attention_lse_plain, bwd_plan, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_lse,
+        flash_attention_plain)
     hbm, peak_bf16 = model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"]
     peak_f32 = model.vector_flops["float32"]
     bf16, f32 = torch.bfloat16, torch.float32
@@ -3722,9 +3802,31 @@ def phase1h_flash_attention_bwd(model):
     entries = []
     for i, (case, (spec, flags)) in enumerate(cases.items()):
         q, k, v, do = inputs(spec, 70 + i)
-        o = flash_attention(q, k, v, **flags)
-        got = flash_attention_bwd(q, k, v, o, do, **flags)
-        again = flash_attention_bwd(q, k, v, o, do, **flags)
+        o, lse = flash_attention_lse(q, k, v, **flags)
+        o_want = flash_attention_plain(q, k, v, **flags)
+        lse_want = attention_lse_plain(q, k, **flags)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+            raise AssertionError(f"flash_attention_lse {case}: not finite")
+        o_tol = 2e-2 if spec["dtype"] == bf16 else 2e-5
+        o_err = (o.float() - o_want.float()).abs().max().item()
+        lse_err = (lse - lse_want).abs().max().item()
+        log(f"[kernel] flash_attention_lse {case}: the forward's output "
+            f"max_abs_err {o_err:.3e} (tol atol {o_tol}), LSE max_abs_err "
+            f"{lse_err:.3e} (tol atol 1e-4)")
+        torch.testing.assert_close(o.float(), o_want.float(), rtol=0.0,
+                                   atol=o_tol)
+        torch.testing.assert_close(lse, lse_want, rtol=0.0, atol=1e-4)
+        del o_want
+        pl = bwd_plan(q, k, v, o, do, lse, flags.get("window"),
+                      compat.sm_count(q.device.index))
+        log(f"[kernel] flash_attention_bwd {case} plan: {pl.kv_blocks} dK / "
+            f"dV blocks of {pl.keys} keys (head_split {pl.head_split}), "
+            f"{pl.dq_blocks} dQ blocks of {pl.dq_rows} queries, "
+            f"{pl.launches} launches, shared memory {pl.kv_smem} / "
+            f"{pl.dq_smem} B, {pl.part_floats * 4} B of partials")
+        got = flash_attention_bwd(q, k, v, o, do, lse=lse, **flags)
+        again = flash_attention_bwd(q, k, v, o, do, lse=lse, **flags)
         want = flash_attention_bwd_plain(q, k, v, o, do, **flags)
         torch.cuda.synchronize()
         frac = 1e-2 if spec["dtype"] == bf16 else 1e-5
@@ -3743,25 +3845,33 @@ def phase1h_flash_attention_bwd(model):
             torch.testing.assert_close(x.float(), z.float(), rtol=0.0,
                                        atol=frac * scale)
             err = max(err, e)
-        del got, again, want
-        sets = [(q, k, v, o, do)]
+        del got, again, want, lse_want
+        sets = [(q, k, v, o, do, lse)]
         for j in range(n_sets(nbytes(q, k, v, o, do)) - 1):
             qj, kj, vj, doj = inputs(spec, 170 + 10 * i + j)
-            sets.append((qj, kj, vj, flash_attention(qj, kj, vj, **flags),
-                         doj))
+            oj, lsej = flash_attention_lse(qj, kj, vj, **flags)
+            sets.append((qj, kj, vj, oj, doj, lsej))
 
-        def kern(q, k, v, o, do):
-            return flash_attention_bwd(q, k, v, o, do, **flags)
+        def kern(q, k, v, o, do, lse):
+            return flash_attention_bwd(q, k, v, o, do, lse=lse, **flags)
 
-        def plain(q, k, v, o, do):
+        def plain(q, k, v, o, do, lse):
             return flash_attention_bwd_plain(q, k, v, o, do, **flags)
 
         ms = time_ms(kern, sets)
+        passes = _profile_bwd(lambda: kern(*sets[0]))
+        total = sum(t for t, _ in passes.values())
+        dq_ms = sum(t for n, (t, _) in passes.items() if "_dq" in n)
+        log(f"[kernel] flash_attention_bwd {case} passes (profiled, ms a "
+            f"launch, launches recorded in 4 calls): "
+            + ", ".join(f"{n} {t:.4f} ({c})" for n, (t, c) in
+                        passes.items())
+            + f"; dQ {dq_ms / max(total, 1e-9):.3f} of {total:.4f} ms")
         plain_ms = time_ms(plain, sets[:1], reps=3, n=1)
         library_ms = None
         if "window" not in flags and "softcap" not in flags:
             lib_sets = []
-            for q_, k_, v_, _, do_ in sets:
+            for q_, k_, v_, _, do_, _ in sets:
                 qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                               for t in (q_, k_, v_))
                 out = F.scaled_dot_product_attention(
@@ -3794,7 +3904,7 @@ def phase1h_flash_attention_bwd(model):
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms})
-        del sets, q, k, v, o, do
+        del sets, q, k, v, o, do, lse
         torch.cuda.empty_cache()
     return entries
 
@@ -3808,18 +3918,21 @@ def _train_counters():
     return {"fwd": kfa.flash_attention.launches,
             "bwd": kfa.flash_attention_bwd.launches,
             "fwd_plain": kfa.flash_attention_plain.calls,
-            "bwd_plain": kfa.flash_attention_bwd_plain.calls}
+            "bwd_plain": kfa.flash_attention_bwd_plain.calls,
+            "lse_plain": kfa.attention_lse_plain.calls}
 
 
 def _zero_train_counters():
     from repro_torch.kernels import flash_attention as kfa
     kfa.flash_attention.launches = kfa.flash_attention_bwd.launches = 0
     kfa.flash_attention_plain.calls = kfa.flash_attention_bwd_plain.calls = 0
+    kfa.attention_lse_plain.calls = 0
 
 
 def _profile_step(fn):
     """``fn()`` under ``torch.profiler`` (CUDA activity only): (device
-    busy ms, forward kernel ms, backward kernels ms, the top kernels)."""
+    busy ms, forward kernel ms, backward kernels ms, the top kernels, the
+    backward's passes as :func:`_bwd_passes`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3835,7 +3948,7 @@ def _profile_step(fn):
     return (ms(lambda k: True), ms(lambda k: "flash_attention" in k),
             ms(lambda k: "fa_bwd" in k),
             [(e.key[:50], e.count, e.self_device_time_total / 1e3)
-             for e in top])
+             for e in top], _bwd_passes(kern))
 
 
 def _train_run(step_fn, state, stream, total, ckpt_dir=None):
@@ -3911,13 +4024,13 @@ def phase2n_training():
             counts = _train_counters()
             want = {"fwd": 3 * 2 * cfg.n_layers * accum,
                     "bwd": 3 * cfg.n_layers * accum, "fwd_plain": 0,
-                    "bwd_plain": 0}
+                    "bwd_plain": 0, "lse_plain": 0}
             if counts != want:
                 raise AssertionError(f"2n accum {accum}: launches {counts}, "
                                      f"expected {want}")
             peak = torch.cuda.max_memory_allocated()
             batch = stream.batch(3)
-            busy, fwd_ms, bwd_ms, top = _profile_step(
+            busy, fwd_ms, bwd_ms, top, passes = _profile_step(
                 lambda: step_fn(state, batch))
             _, wall = _timed(lambda: step_fn(state, batch))
             step_s = statistics.median(secs[1:])
@@ -3928,11 +4041,14 @@ def phase2n_training():
                 f"{counts['bwd'] // 3}; one profiled step: device busy "
                 f"{busy:.2f} ms of {wall * 1e3:.2f} ms wall (idle "
                 f"{1 - busy / (wall * 1e3):.3f}), flash_attention "
-                f"{fwd_ms:.2f} ms, flash_attention_bwd {bwd_ms:.2f} ms; "
-                f"peak memory {peak / 2**30:.2f} GiB; top {top}")
+                f"{fwd_ms:.2f} ms, flash_attention_bwd {bwd_ms:.2f} ms ("
+                + ", ".join(f"{n} {t:.2f} ms x {c}" for n, (t, c) in
+                            passes.items())
+                + f"); peak memory {peak / 2**30:.2f} GiB; top {top}")
             out[accum] = {"step_s": step_s, "tok_s": b * s / step_s,
                           "busy_ms": busy, "fwd_ms": fwd_ms,
-                          "bwd_ms": bwd_ms, "peak_gib": peak / 2**30,
+                          "bwd_ms": bwd_ms, "bwd_passes": passes,
+                          "peak_gib": peak / 2**30,
                           "fwd_launches": counts["fwd"] // 3,
                           "bwd_launches": counts["bwd"] // 3}
             del step_fn, batch
@@ -4031,7 +4147,7 @@ def phase3i_train_parity():
                 n += 1
                 lr_sum += float(opt.schedule(n))
                 want_c = {"fwd": 2 * 2 * accum, "bwd": 2 * accum,
-                          "fwd_plain": 0, "bwd_plain": 0}
+                          "fwd_plain": 0, "bwd_plain": 0, "lse_plain": 0}
                 if counts != want_c:
                     raise AssertionError(f"3i: card launches {counts}, "
                                          f"expected {want_c}")

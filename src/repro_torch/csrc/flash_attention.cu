@@ -12,7 +12,10 @@
 //   out_i = sum_j softmax(s_i)_j v_j             over the visible keys
 // GQA through the head index (kv head = q head / (hq / hkv)), no KV copy.
 // A row with no visible key yields zeros (l == 0 -> 1 over acc == 0), as
-// the Pallas kernel does where it skips every tile of the row.
+// the Pallas kernel does where it skips every tile of the row.  Given an
+// lse array (training), each row's log-sum-exp over its visible keys is
+// stored beside the output in fp32 (0 for a row with none), for
+// flash_attention_bwd.cu; a null pointer stores nothing.
 //
 // Bound: at the prefill shapes (s in the thousands, d = 128) attention
 // does ~s/2 flops per byte of q, k, v and out, above the card's ~295
@@ -96,6 +99,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;               // (b, hq, sq) natural-log LSE, or null
   int sq, skv, hq, ratio, d, q_offset;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
       o_ss, o_sh;
@@ -148,6 +152,7 @@ __device__ __forceinline__ float softcapped(const Args& a, float s) {
 // ===================================================================== //
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 2^x (ex2.approx: relative error ~2^-22; 2^-inf = 0)
 __device__ __forceinline__ float ex2(float x) {
@@ -292,12 +297,20 @@ __global__ void __launch_bounds__(Tc<D>::kThreads, 1)
 
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out) + bi * a.o_sb +
                       h * a.o_sh;
-  // out rows row0, row0 + 8 = o / l (0 where l == 0)
+  // out rows row0, row0 + 8 = o / l (0 where l == 0); with a.lse, their
+  // LSE, (m + log2 l) ln 2 (0 where l == 0)
   auto store = [&]() {
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    if (a.lse != nullptr && t == 0) {
+      float* lse = a.lse + (long long)bh * a.sq;
+      if (row0 < a.sq)
+        lse[row0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : 0.f;
+      if (row0 + 8 < a.sq)
+        lse[row0 + 8] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : 0.f;
     }
     const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
     const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
@@ -647,6 +660,8 @@ __global__ void __launch_bounds__(kF32Threads)
     const float inv = 1.f / (lr == 0.f ? 1.f : lr);
     const int row = q0 + ty * 4 + r;
     if (row >= a.sq) continue;
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(long long)bh * a.sq + row] = lr > 0.f ? m[r] + logf(lr) : 0.f;
 #pragma unroll
     for (int c = 0; c < kOC; ++c) {
       const int col = c * 64 + tx * 4;
@@ -767,7 +782,10 @@ int launch_f32(const Args& a, int b, cudaStream_t st) {
 
 }  // namespace
 
-// dtype code: 0 = float32, 1 = bfloat16 (q, k, v and out alike).
+// dtype code: 0 = float32, 1 = bfloat16 (q, k, v and out alike).  lse:
+// null, or an fp32 (b, hq, sq) contiguous array that receives each row's
+// natural-log LSE over its visible keys (0 for a row with none), which
+// the backward reads.
 // Strides are in elements; head_dim must be the unit-stride axis, d a
 // multiple of 8 (bf16) or 4 (fp32), every stride a multiple of that and
 // the pointers 16-byte aligned (the wrapper checks; bf16 also needs
@@ -777,9 +795,10 @@ int launch_f32(const Args& a, int b, cudaStream_t st) {
 // cudaGetLastError() after the launch (0 = ok), cudaErrorInvalidValue
 // for what the kernels do not take.
 extern "C" int repro_flash_attention(
-    int dtype, const void* q, const void* k, const void* v, void* out, int b,
-    int sq, int skv, int hq, int hkv, int d, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    int dtype, const void* q, const void* k, const void* v, void* out,
+    void* lse, int b, int sq, int skv, int hq, int hkv, int d,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, float scale, int causal, int has_window,
     int window, int has_softcap, float softcap, int q_offset, int head_group,
@@ -797,6 +816,7 @@ extern "C" int repro_flash_attention(
   a.k = k;
   a.v = v;
   a.out = out;
+  a.lse = static_cast<float*>(lse);
   a.sq = sq;
   a.skv = skv;
   a.hq = hq;

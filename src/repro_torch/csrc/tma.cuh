@@ -6,7 +6,8 @@
 // (mbar_init, then fence.mbarrier_init), armed by the thread that issues
 // the copies with the bytes they will bring (mbar_expect), completed by
 // the copies themselves (tma_2d, tma_4d: one box of a map, elements out
-// of the tensor's range arrive as zeros and still count) and by the
+// of the tensor's range arrive as zeros and still count; bulk_copy: a
+// contiguous run of bytes, no map) and by the
 // other arrivals the barrier was made for (mbar_arrive); a consumer
 // waits on the barrier's phase parity (mbar_wait).
 //
@@ -74,6 +75,18 @@ __device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map,
       ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar)) : "memory");
+}
+
+// `bytes` contiguous bytes from device memory into shared memory,
+// completing on bar (no tensor map; both addresses and `bytes` on 16
+// bytes)
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_addr(bar)) : "memory");
 }
 
 using EncodeTiled = CUresult (*)(

@@ -29,14 +29,20 @@ never produces such a row (causal rows always see themselves).
 
 Training: with grad enabled and an input that requires it,
 :func:`flash_attention` runs through :class:`FlashAttentionFn`, whose
-forward is the same dispatch and whose backward is
-:func:`flash_attention_bwd`: on the CPU :func:`flash_attention_bwd_plain`
-(the explicit formulas in fp32), on a CUDA device the hand-written
-kernel ``csrc/flash_attention_bwd.cu`` (the reference differentiates its
-XLA ``attention()``; there is no Pallas backward).  A ``q_offset`` with
-a gradient raises.  ``flash_attention_bwd.launches`` counts backward
-launches.  With grad disabled nothing changes: the forward runs as
-before, with no autograd node.
+forward is :func:`flash_attention_lse` (the same dispatch; the kernel
+also stores each row's log-sum-exp, the plain version computes it with
+:func:`attention_lse_plain`) and whose backward is
+:func:`flash_attention_bwd` from the saved q, k, v, output and LSE: on
+the CPU :func:`flash_attention_bwd_plain` (the explicit formulas in
+fp32), on a CUDA device the hand-written kernel
+``csrc/flash_attention_bwd.cu`` (the reference differentiates its XLA
+``attention()``; there is no Pallas backward), which reads the forward's
+LSE and raises without it.  :func:`bwd_plan` is its launch plan (tiles,
+stages, shared memory, the q-head split, the grids).  A ``q_offset``
+with a gradient raises.  ``flash_attention_bwd.launches`` counts
+backward calls that launched the kernel's passes.  With grad disabled
+nothing changes: the forward runs as before, storing no LSE, with no
+autograd node.
 """
 
 from __future__ import annotations
@@ -48,12 +54,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import compat
 from repro_torch.kernels import _build
 from repro_torch.models.attention import NEG_INF, attention, full_attention
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}    # elements per 16 bytes
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -204,7 +211,10 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                head_group=max(1, min(group, b * hq)))
 
 
-def _kernel(q, k, v, causal, window, softcap, scale, q_offset):
+def _kernel(q, k, v, causal, window, softcap, scale, q_offset,
+            lse: Optional[torch.Tensor] = None):
+    """One launch; with ``lse`` (fp32 (b, hq, sq), contiguous) the kernel
+    also stores each row's log-sum-exp there."""
     pl = plan(q, k, v, window, q_offset)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -215,7 +225,9 @@ def _kernel(q, k, v, causal, window, softcap, scale, q_offset):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), b, sq, skv, hq, hkv, d,
+                 v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(), b, sq, skv, hq,
+                 hkv, d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], scale, bool(causal), window is not None,
                  window or 0, softcap is not None, softcap or 0.0, q_offset,
@@ -255,35 +267,66 @@ def wgmma_rs_unit_tile(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return d
 
 
-def _forward(q, k, v, causal, window, softcap, scale, q_offset, chunk):
+def _forward(q, k, v, causal, window, softcap, scale, q_offset, chunk,
+             lse=False):
+    """The output, or (output, LSE) with ``lse``: on the CPU the plain
+    version (and :func:`attention_lse_plain`), on a CUDA device one
+    kernel launch that stores both."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, scale=scale,
-                                     q_offset=q_offset, chunk=chunk)
+        out = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, scale=scale,
+                                    q_offset=q_offset, chunk=chunk)
+        if not lse:
+            return out
+        return out, attention_lse_plain(q, k, causal=causal, window=window,
+                                        softcap=softcap, scale=scale)
     if q.device.type == "cuda":
-        return _kernel(q, k, v, causal, window, softcap, scale, q_offset)
+        if not lse:
+            return _kernel(q, k, v, causal, window, softcap, scale, q_offset)
+        b, sq, hq, _ = q.shape
+        rows = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+        return (_kernel(q, k, v, causal, window, softcap, scale, q_offset,
+                        rows), rows)
     raise ValueError(f"flash_attention runs on 'cuda' (kernel) or 'cpu' "
                      f"(plain version), not {q.device}")
 
 
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None, chunk: int = 1024
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of whole-sequence attention with queries at 0..sq-1:
+    ``out`` as :func:`flash_attention`, ``lse`` fp32 (b, hq, sq), each
+    row's natural-log log-sum-exp over its visible keys (0 for a row
+    with none), which :func:`flash_attention_bwd` reads.  CUDA tensors:
+    one kernel launch that stores both; CPU tensors: the plain forward
+    and :func:`attention_lse_plain`.  Not differentiable (training goes
+    through :class:`FlashAttentionFn`, whose forward this is)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _forward(q, k, v, causal, window, softcap, scale, 0, chunk,
+                    lse=True)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """:func:`flash_attention` differentiable in q, k and v: the forward
-    dispatch, and :func:`flash_attention_bwd` from the saved q, k, v and
-    output.  Queries sit at 0..sq-1."""
+    is :func:`flash_attention_lse`, and :func:`flash_attention_bwd` runs
+    from the saved q, k, v, output and LSE.  Queries sit at 0..sq-1."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, chunk):
-        o = _forward(q, k, v, causal, window, softcap, scale, 0, chunk)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal, window, softcap, scale, 0,
+                          chunk, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.flags = dict(causal=causal, window=window, softcap=softcap,
                          scale=scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
-                                         **ctx.flags)
+                                         lse=lse, **ctx.flags)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -319,16 +362,62 @@ flash_attention.launches = 0
 # Backward
 # --------------------------------------------------------------------- #
 
-_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 15
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12
+                 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                 + [ctypes.c_longlong] * 15
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_float,
                     ctypes.c_void_p])
+_BWD_PLAN_MISMATCH = -1         # csrc/flash_attention_bwd.cu kPlanMismatch
+
+
+def _plain_scores(q, k, causal, window, softcap, scale):
+    """fp32 capped scores (b, hkv, g, sq, skv) of q (b, sq, hq, d) against
+    k, masked to ``NEG_INF``; the visible mask (sq, skv); ``tanh(scale
+    q·k / c)`` under a softcap ``c`` (else None)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    t = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    q_pos = torch.arange(sq, device=q.device)
+    k_pos = torch.arange(skv, device=q.device)
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        ok &= q_pos[:, None] - k_pos[None, :] < window
+    return s.masked_fill(~ok, NEG_INF), ok, t
+
+
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """The LSE that the forward kernel stores, in plain PyTorch: fp32 (b,
+    hq, sq), ``torch.logsumexp`` of each row's masked fp32 scores, 0 for a
+    row with no visible key.  ``attention_lse_plain.calls`` counts calls
+    (the CPU leg of :func:`flash_attention_lse`)."""
+    attention_lse_plain.calls += 1
+    b, sq, hq, d = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s, ok, _ = _plain_scores(q, k, causal, window, softcap, scale)
+    lse = torch.logsumexp(s, dim=-1)                       # (b, hkv, g, sq)
+    lse = torch.where(ok.any(-1), lse, torch.zeros((), device=q.device))
+    return lse.reshape(b, hq, sq)
+
+
+attention_lse_plain.calls = 0
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
-                              do: torch.Tensor, *, causal: bool = True,
+                              do: torch.Tensor, *,
+                              lse: Optional[torch.Tensor] = None,
+                              causal: bool = True,
                               window: Optional[int] = None,
                               softcap: Optional[float] = None,
                               scale: Optional[float] = None
@@ -340,29 +429,23 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     (query, key) pairs and 0 elsewhere, ``D = rowsum(dO * O)``:
     ``dV = P^T dO``, ``dS = P (dO V^T - D) (1 - t^2)``, ``dQ = scale dS
     K``, ``dK = scale dS^T Q``; dK and dV sum over the q heads of a GQA
-    group.  Returns (dq, dk, dv) at the inputs' dtypes."""
+    group.  ``lse`` (b, hq, sq) is the forward's (:func:`flash_attention_lse`);
+    without it each row's LSE is computed here from the scores.  Returns
+    (dq, dk, dv) at the inputs' dtypes."""
     flash_attention_bwd_plain.calls += 1
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     f32 = torch.float32
-    qg = q.float().reshape(b, sq, hkv, hq // hkv, d)
-    dog = do.float().reshape(b, sq, hkv, hq // hkv, d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    if softcap is not None:
-        t = torch.tanh(s / softcap)
-        s = softcap * t
-    q_pos = torch.arange(sq, device=q.device)
-    k_pos = torch.arange(skv, device=q.device)
-    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= q_pos[:, None] >= k_pos[None, :]
-    if window is not None:
-        ok &= q_pos[:, None] - k_pos[None, :] < window
-    s = s.masked_fill(~ok, NEG_INF)
-    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    s, ok, t = _plain_scores(q, k, causal, window, softcap, scale)
+    if lse is None:
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    else:
+        lse = lse.to(f32).reshape(b, hkv, hq // hkv, sq, 1)
     p = torch.where(ok, torch.exp(s - lse), torch.zeros((), dtype=f32,
                                                          device=q.device))
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, d)
+    dog = do.float().reshape(b, sq, hkv, hq // hkv, d)
     delta = (do.float() * o.float()).sum(-1)               # (b, sq, hq)
     delta = delta.reshape(b, sq, hkv, hq // hkv).permute(0, 2, 3, 1)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
@@ -381,11 +464,12 @@ flash_attention_bwd_plain.calls = 0
 
 def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      o: torch.Tensor, do: torch.Tensor,
-                     window: Optional[int]) -> None:
+                     window: Optional[int],
+                     lse: Optional[torch.Tensor] = None) -> None:
     """Raise on what the backward kernel does not take: shapes (o and dO
-    as q), head_dim above ``MAX_D``, dtypes (all float32 or all
-    bfloat16), a head_dim that is not the unit-stride axis, tensors on
-    two devices, a window below 1."""
+    as q, ``lse`` fp32 (b, hq, sq) where given), head_dim above
+    ``MAX_D``, dtypes (all float32 or all bfloat16), a head_dim that is
+    not the unit-stride axis, tensors on two devices, a window below 1."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
             or o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"shapes: q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -403,36 +487,184 @@ def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{d}, {[t.dtype for t in (q, k, v, o, do)]}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 (window={window})")
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+    named = [("q", q), ("k", k), ("v", v), ("o", o), ("do", do)]
+    for name, t in named:
         if t.shape[-1] > 1 and t.stride(-1) != 1:
             raise ValueError(f"{name}: head_dim must be the unit-stride "
                              f"axis (strides {t.stride()})")
+    if lse is not None:
+        if tuple(lse.shape) != (b, hq, sq) or lse.dtype != torch.float32:
+            raise ValueError(f"lse: fp32 (b, hq, sq) = {(b, hq, sq)} from "
+                             f"the forward; got {lse.dtype} "
+                             f"{tuple(lse.shape)}")
+        named.append(("lse", lse))
+    for name, t in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def _bwd_kernel(q, k, v, o, do, causal, window, softcap, scale):
-    check_bwd_inputs(q, k, v, o, do, window)
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How the backward kernel runs a call (``csrc/flash_attention_bwd.cu``):
+    head_dim padded to ``d_pad``; (A) ``dot_blocks`` blocks of 8 rows
+    (D and the LSE into rows padded to ``sq_pad``); (B) ``kv_blocks``
+    blocks of ``keys`` keys, each over ``head_split``-th of a GQA group's
+    q heads, in steps of ``q_tile`` queries through ``kv_stages`` stages
+    (``kv_smem`` bytes); (R) ``reduce_blocks`` blocks summing
+    ``part_floats`` fp32 partials (0 and 0 without a split); (C)
+    ``dq_blocks`` blocks of ``dq_rows`` queries, in steps of ``dq_bk``
+    keys through ``dq_stages`` stages (``dq_smem`` bytes).  bf16 runs
+    (B) and (C) on ``wgmma`` with ``threads`` = 384 (two consumer
+    warpgroups and a TMA producer); fp32 on the CUDA cores with 256.
+    The wrapper hands the kernel every field (:meth:`launch_args`); the
+    kernel refuses a plan that is not its own layout and launches the
+    grids and shared memory it was given."""
+    d_pad: int
+    keys: int
+    q_tile: int
+    kv_stages: int
+    kv_smem: int
+    dq_rows: int
+    dq_bk: int
+    dq_stages: int
+    dq_smem: int
+    threads: int
+    sq_pad: int
+    head_split: int
+    dot_blocks: int
+    kv_blocks: int
+    reduce_blocks: int
+    dq_blocks: int
+    part_floats: int
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches of one call: (A), (B), (R) with a split, (C)."""
+        return 3 + (self.reduce_blocks > 0)
+
+    def launch_args(self) -> Tuple[int, ...]:
+        """The plan in the order of ``repro_flash_attention_bwd``'s
+        ``plan`` array."""
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
+
+def _bwd_tiles(dtype: torch.dtype, d: int) -> dict:
+    """The backward's tile shapes and shared memory at head_dim ``d``
+    (see :class:`BwdPlan`; the byte counts are the kernels')."""
+    d_pad = 64 if d <= 64 else 128 if d <= 128 else 256
+    if dtype == torch.bfloat16:
+        keys = 64 if d_pad == 256 else 128
+        kv_stages = dq_stages = 2 if d_pad == 256 else 3
+        dq_bk = 32 if d_pad == 256 else 64
+        kv_smem = (2 * keys * d_pad * 2 + kv_stages * 2 * 64 * d_pad * 2
+                   + kv_stages * 2 * 64 * 4 + (1 + 2 * kv_stages) * 8 + 1024)
+        dq_smem = (2 * 128 * d_pad * 2 + dq_stages * 2 * dq_bk * d_pad * 2
+                   + (1 + 2 * dq_stages) * 8 + 1024)
+        return dict(d_pad=d_pad, keys=keys, q_tile=64, kv_stages=kv_stages,
+                    kv_smem=kv_smem, dq_rows=128, dq_bk=dq_bk,
+                    dq_stages=dq_stages, dq_smem=dq_smem, threads=384)
+    bk = 32 if d_pad == 256 else 64
+    rows = (d_pad + 1) * 4
+    return dict(d_pad=d_pad, keys=bk, q_tile=64, kv_stages=1,
+                kv_smem=(2 * bk + 128) * rows + 128 * (bk + 16) * 4 + 512,
+                dq_rows=64, dq_bk=bk, dq_stages=1,
+                dq_smem=(2 * bk + 128) * rows + 64 * (bk + 16) * 4 + 512,
+                threads=256)
+
+
+def bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+             window: Optional[int], sm_count: int) -> BwdPlan:
+    """Checks a backward call's inputs (:func:`check_bwd_inputs`; bf16 also
+    what TMA reads: q, k, v, dO and o with head_dim a multiple of 8,
+    strides a multiple of 16 bytes and positive where the extent is above
+    1, 16-byte aligned pointers) and returns how the kernel runs it on a
+    card of ``sm_count`` SMs.  Where (B)'s b * hkv * key tiles blocks are
+    fewer than ``sm_count`` (bf16), each GQA group's q heads are split
+    over the smallest ``head_split`` dividing hq / hkv that reaches it
+    (all of them where none does).  Reads shapes, dtypes, strides and
+    addresses only, on any device."""
+    check_bwd_inputs(q, k, v, o, do, window, lse)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    tiles = _bwd_tiles(q.dtype, d)
+    if q.dtype == torch.bfloat16:
+        if d % 8:
+            raise ValueError(f"backward kernel takes a bf16 head_dim that "
+                             f"is a multiple of 8 (TMA rows of 16 bytes); "
+                             f"got {d}")
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16 \
+                    or any(st <= 0 for st, n in zip(t.stride()[:3],
+                                                     t.shape[:3]) if n > 1):
+                raise ValueError(f"{name}: TMA reads bf16 tiles through "
+                                 f"positive strides that are multiples of "
+                                 f"16 bytes from a 16-byte aligned pointer; "
+                                 f"got strides {t.stride()}")
+    if -(-sq // 64) > 65535 or -(-skv // 32) > 65535:
+        raise ValueError(f"backward kernel takes at most 65535 tiles of 64 "
+                         f"queries and of 32 keys (sq={sq}, skv={skv})")
+    ratio = hq // hkv
+    pairs = b * hkv
+    n_kt = -(-skv // tiles["keys"])
+    split = 1
+    if q.dtype == torch.bfloat16 and 0 < pairs * n_kt < sm_count:
+        split = next((s for s in range(1, ratio + 1)
+                      if ratio % s == 0 and pairs * n_kt * s >= sm_count),
+                     ratio)
+    n_el = b * skv * hkv * d
+    part = 2 * split * n_el if split > 1 else 0
+    sq_pad = -(-sq // 128) * 128
+    dq_blocks = b * hq * -(-sq // tiles["dq_rows"])
+    if max(pairs * n_kt * split, dq_blocks, b * hq * sq_pad // 8) \
+            > 2 ** 31 - 1:
+        raise ValueError(f"backward kernel takes at most 2^31 - 1 blocks a "
+                         f"launch (b={b}, sq={sq}, skv={skv}, hq={hq})")
+    return BwdPlan(**tiles, sq_pad=sq_pad, head_split=split,
+                   dot_blocks=-(-b * hq * sq_pad // 8),
+                   kv_blocks=pairs * n_kt * split,
+                   reduce_blocks=-(-n_el // 1024) if part else 0,
+                   dq_blocks=dq_blocks, part_floats=part)
+
+
+def _bwd_kernel(q, k, v, o, do, causal, window, softcap, scale, lse=None):
     lib = _build.load("flash_attention_bwd")
+    if lse is None:
+        raise ValueError("flash_attention_bwd on a CUDA device needs the "
+                         "forward's lse (flash_attention_lse); it runs no "
+                         "forward or statistics pass itself")
+    pl = bwd_plan(q, k, v, o, do, lse, window,
+                  compat.sm_count(q.device.index))
+    lse = lse.contiguous()
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
     fn = lib.repro_flash_attention_bwd
     fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, skv, hkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    stats = torch.empty((2, b * hq * pl.sq_pad), dtype=torch.float32,
+                        device=q.device)
+    part = (torch.empty(pl.part_floats, dtype=torch.float32, device=q.device)
+            if pl.part_floats else None)
+    launch = pl.launch_args()
+    launch = (ctypes.c_longlong * len(launch))(*launch)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), b, sq, skv, hq, hkv, d,
+                 v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 stats[0].data_ptr(), stats[1].data_ptr(),
+                 None if part is None else part.data_ptr(), b, sq, skv, hq,
+                 hkv, d, launch,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *o.stride()[:3], *do.stride()[:3], scale, bool(causal),
                  window is not None, window or 0, softcap is not None,
                  softcap or 0.0, stream)
+    if err == _BWD_PLAN_MISMATCH:
+        raise RuntimeError(f"flash_attention_bwd: the kernel refused the "
+                           f"plan {pl} as not its own layout "
+                           f"(csrc/flash_attention_bwd.cu own_plan)")
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
                            f"CUDA error {err}")
@@ -442,22 +674,26 @@ def _bwd_kernel(q, k, v, o, do, causal, window, softcap, scale):
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
+                        lse: Optional[torch.Tensor] = None,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor,
                                    torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention` (queries at 0..sq-1) from
-    its inputs, its output ``o`` and the output's gradient ``do``, at
-    the inputs' dtype.  CPU tensors take
-    :func:`flash_attention_bwd_plain`; CUDA tensors launch the kernel."""
+    its inputs, its output ``o``, the output's gradient ``do`` and the
+    forward's ``lse`` (:func:`flash_attention_lse`), at the inputs'
+    dtype.  CPU tensors take :func:`flash_attention_bwd_plain` (which
+    computes the LSE itself where none is given); CUDA tensors launch the
+    kernel, which needs ``lse`` and raises without it."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
-                                         window=window, softcap=softcap,
-                                         scale=scale)
+        return flash_attention_bwd_plain(q, k, v, o, do, lse=lse,
+                                         causal=causal, window=window,
+                                         softcap=softcap, scale=scale)
     if q.device.type == "cuda":
-        return _bwd_kernel(q, k, v, o, do, causal, window, softcap, scale)
+        return _bwd_kernel(q, k, v, o, do, causal, window, softcap, scale,
+                           lse=lse)
     raise ValueError(f"flash_attention_bwd runs on 'cuda' (kernel) or "
                      f"'cpu' (plain version), not {q.device}")
 

@@ -12,9 +12,10 @@ Phases: ``1`` (``flash_decode``), ``1b`` (``flash_decode_quant``), ``1c``
 the Fig 4/5 sweep: ``mma_products`` in bf16 at 128^3 over batch 1, 2,
 4, 8, 16, 32 x ilp 1, 2, 4, 6, 8, the kernel's device time and TFLOP/s
 at each point), ``1e`` (``ssd_scan``: its cases, then (a) the serving
-call and (b) bt 8 x s 2048 timed), ``1f`` (``flash_attention``).  Phases
-1-1c take the HBM rate and the bf16 peak, 1d, 1e and 1f the device
-model.  Run it by path, not with ``-m``: each child imports
+call and (b) bt 8 x s 2048 timed), ``1f`` (``flash_attention``), ``1h``
+(``flash_attention_bwd``, each tree's backward with its own forward and
+signature).  Phases 1-1c take the HBM rate and the bf16 peak, 1d-1h the
+device model.  Run it by path, not with ``-m``: each child imports
 ``chip_smoke`` and ``repro_torch`` from its own tree.  It prints each run's timed cases (kernel, plain and
 PyTorch-call ms, the bound, max |err|), then one line per case with the
 times of every run (a case one tree does not time shows "-"), and the
@@ -40,7 +41,10 @@ PHASES = {"1": ("phase1_flash_decode", ("flash_decode",), "rates"),
           "1d": ("phase1d_probes", ("probe_dep_chain", "probe_chase",
                                     "probe_mma"), "model"),
           "1e": ("phase1e_ssd_scan", ("ssd_scan",), "model"),
-          "1f": ("phase1f_flash_attention", ("flash_attention",), "model")}
+          "1f": ("phase1f_flash_attention", ("flash_attention",), "model"),
+          "1h": ("phase1h_flash_attention_bwd", ("flash_attention",
+                                                 "flash_attention_bwd"),
+                 "model")}
 KEEP = ("name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "max_abs_err")
 SWEEP_BATCHES = (1, 2, 4, 8, 16, 32)

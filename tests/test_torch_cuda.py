@@ -1385,33 +1385,137 @@ FA_BWD_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(FA_BWD_CASES))
-def test_flash_attention_bwd_matches_plain(cuda, case):
-    """``flash_attention_bwd`` against ``flash_attention_bwd_plain`` (fp32
-    formulas on the same inputs): bf16 atol 1e-2 x the largest |grad|
-    (the outputs' bf16 rounding, ~2^-9 relative, and bf16 inputs read
-    alike on both sides), fp32 atol 1e-5 x the largest |grad| (summation
-    order); two calls bit-identical (no atomics)."""
+def _bwd_inputs(device, seed, b, sq, skv, hq, hkv, d, dtype, q_scale=1.0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = (q_scale * torch.randn((b, sq, hq, d), generator=g,
+                               device=device)).to(dtype)
+    k, v = (torch.randn((b, skv, hkv, d), generator=g,
+                        device=device).to(dtype) for _ in range(2))
+    do = torch.randn(q.shape, generator=g, device=device).to(dtype)
+    return q, k, v, do
+
+
+def _check_bwd(q, k, v, do, flags):
+    """The forward's (out, LSE), then the backward given that LSE against
+    ``flash_attention_bwd_plain`` (fp32 formulas on the same inputs, its
+    own LSE): bf16 atol 1e-2 x the largest |grad| (the outputs' bf16
+    rounding, ~2^-9 relative, and bf16 inputs read alike on both sides),
+    fp32 atol 1e-5 x the largest |grad| (summation order); two calls
+    bit-identical (no atomics)."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_plain)
-    b, s, hq, hkv, d, dtype, flags, q_scale = FA_BWD_CASES[case]
-    g = torch.Generator(device="cuda").manual_seed(len(case))
-    q = (q_scale * torch.randn((b, s, hq, d), generator=g,
-                               device=cuda)).to(dtype)
-    k, v = (torch.randn((b, s, hkv, d), generator=g, device=cuda).to(dtype)
-            for _ in range(2))
-    o = flash_attention(q, k, v, **flags)
-    do = torch.randn(o.shape, generator=g, device=cuda).to(dtype)
-    got = flash_attention_bwd(q, k, v, o, do, **flags)
-    again = flash_attention_bwd(q, k, v, o, do, **flags)
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_lse)
+    o, lse = flash_attention_lse(q, k, v, **flags)
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse, **flags)
+    again = flash_attention_bwd(q, k, v, o, do, lse=lse, **flags)
     want = flash_attention_bwd_plain(q, k, v, o, do, **flags)
     torch.cuda.synchronize()
-    frac = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    frac = 1e-2 if q.dtype == torch.bfloat16 else 1e-5
     for name, x, y, z in zip("qkv", got, again, want):
         assert torch.equal(x, y), f"d{name}: two calls differ"
         scale = z.float().abs().max().item()
         torch.testing.assert_close(x.float(), z.float(), rtol=0,
                                    atol=frac * scale, msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", list(FA_BWD_CASES))
+def test_flash_attention_bwd_matches_plain(cuda, case):
+    """``flash_attention_bwd``, given the forward kernel's LSE, against
+    ``flash_attention_bwd_plain`` (``_check_bwd``'s tolerances); two
+    calls bit-identical."""
+    b, s, hq, hkv, d, dtype, flags, q_scale = FA_BWD_CASES[case]
+    q, k, v, do = _bwd_inputs(cuda, len(case), b, s, s, hq, hkv, d, dtype,
+                              q_scale)
+    _check_bwd(q, k, v, do, flags)
+
+
+# (b, sq, skv, hq, hkv, d, dtype, flags): ragged q and key tiles, sq
+# against skv both ways, MQA split over the most blocks, a window with a
+# softcap at d 256 and at d 64, and a head_dim below the 64-wide tile
+FA_BWD_EDGES = {
+    "mqa_split_sq100": (1, 100, 100, 8, 1, 128, BF16, {}),
+    "sq70_skv200_non_causal_d64": (2, 70, 200, 4, 2, 64, BF16,
+                                   dict(causal=False)),
+    "sq200_skv70_causal": (2, 200, 70, 4, 4, 128, BF16, {}),
+    "d256_ragged_window_softcap": (1, 333, 333, 4, 2, 256, BF16,
+                                   dict(window=100, softcap=20.0)),
+    "d64_window7_softcap5": (2, 150, 150, 4, 2, 64, BF16,
+                             dict(window=7, softcap=5.0)),
+    "d40": (2, 90, 90, 2, 1, 40, BF16, {}),
+    "fp32_ragged_window": (1, 77, 77, 4, 2, 72, F32, dict(window=30)),
+}
+
+
+@pytest.mark.parametrize("case", list(FA_BWD_EDGES))
+def test_flash_attention_bwd_edges(cuda, case):
+    """The backward's tile edges and the q-head split (``bwd_plan``
+    splits a kv head's 8 q heads over 8 blocks at ``mqa_split_sq100``),
+    held as ``test_flash_attention_bwd_matches_plain``."""
+    from repro_torch.kernels.flash_attention import bwd_plan
+    b, sq, skv, hq, hkv, d, dtype, flags = FA_BWD_EDGES[case]
+    q, k, v, do = _bwd_inputs(cuda, 7, b, sq, skv, hq, hkv, d, dtype)
+    if case == "mqa_split_sq100":
+        lse = torch.zeros((b, hq, sq), device=cuda)
+        assert bwd_plan(q, k, v, q, do, lse, None,
+                        compat.sm_count(0)).head_split == 8
+    _check_bwd(q, k, v, do, flags)
+
+
+@pytest.mark.parametrize("d,dtype", [(64, BF16), (128, BF16), (256, BF16),
+                                     (128, F32)])
+def test_flash_attention_lse_matches_plain(cuda, d, dtype):
+    """The forward kernel's LSE against ``attention_lse_plain`` (fp32, atol
+    1e-4), causal and with a window and a softcap; its output is the
+    same bits as the call that stores no LSE."""
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_plain, flash_attention_lse)
+    for flags in ({}, dict(window=50, softcap=30.0), dict(causal=False)):
+        q, k, v, _ = _bwd_inputs(cuda, d, 2, 300, 300, 4, 2, d, dtype)
+        o, lse = flash_attention_lse(q, k, v, **flags)
+        want = attention_lse_plain(q, k, **flags)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(lse, want, rtol=0.0, atol=1e-4)
+        assert torch.equal(o, flash_attention(q, k, v, **flags))
+
+
+def test_flash_attention_bwd_needs_the_forward_lse(cuda):
+    """On the card the backward takes the forward's LSE or raises,
+    launching nothing: there is no hidden forward or statistics pass."""
+    from repro_torch.kernels import flash_attention as kfa
+    q, k, v, do = _bwd_inputs(cuda, 3, 1, 64, 64, 2, 2, 64, BF16)
+    o = flash_attention(q, k, v)
+    before = kfa.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="lse"):
+        kfa.flash_attention_bwd(q, k, v, o, do)
+    assert kfa.flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("field", ["kv_smem", "keys", "dq_blocks",
+                                   "head_split"])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_flash_attention_bwd_refuses_a_plan_not_its_own(cuda, monkeypatch,
+                                                        field, dtype):
+    """The kernel holds ``bwd_plan``'s plan to its own tiles: a plan off
+    in one field raises, launching nothing; the true plan runs."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as kfa
+    q, k, v, do = _bwd_inputs(cuda, 5, 2, 100, 100, 8, 1, 128, dtype)
+    o, lse = kfa.flash_attention_lse(q, k, v)
+    true_plan = kfa.bwd_plan
+    off = {"head_split": 2} if dtype == BF16 else {}
+
+    def wrong(*args):
+        pl = true_plan(*args)
+        return dataclasses.replace(
+            pl, **{field: off.get(field, getattr(pl, field) + 16)})
+
+    monkeypatch.setattr(kfa, "bwd_plan", wrong)
+    before = kfa.flash_attention_bwd.launches
+    with pytest.raises(RuntimeError, match="not its own layout"):
+        kfa.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    assert kfa.flash_attention_bwd.launches == before
+    monkeypatch.setattr(kfa, "bwd_plan", true_plan)
+    kfa.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    assert kfa.flash_attention_bwd.launches == before + 1
 
 
 def test_train_step_card_matches_cpu(cuda):

@@ -1,7 +1,9 @@
-"""The launch plans of ``mma_probe``, ``flash_attention`` and
-``ssd_scan``, on the CPU: the block tile, grid and shared memory of
-``probe_mma.plan``; the tile, stages, shared memory, head groups and
-block order of ``flash_attention.plan``; the slices of p, padding of n,
+"""The launch plans of ``mma_probe``, ``flash_attention`` (forward and
+backward) and ``ssd_scan``, on the CPU: the block tile, grid and shared
+memory of ``probe_mma.plan``; the tile, stages, shared memory, head
+groups and block order of ``flash_attention.plan``; the tiles, shared
+memory, q-head split and grids of ``flash_attention.bwd_plan``; the
+slices of p, padding of n,
 copy width, shared memory and blocks an SM of ``ssd_scan.plan``; and
 every input check those plans make.  The
 CUDA paths call ``plan`` before each launch; it reads shapes, dtypes,
@@ -10,7 +12,10 @@ themselves are held to their plain versions on the card
 (``tests/test_torch_cuda.py``).
 """
 
+import dataclasses
 import itertools
+import pathlib
+import re
 
 import pytest
 import torch
@@ -210,6 +215,123 @@ def test_attention_plan_keeps_the_old_checks(case):
     }[case]
     with pytest.raises((ValueError, TypeError)):
         fa.plan(*args)
+
+
+# ---- flash_attention.bwd_plan ------------------------------------------ #
+
+def _bwd(b=2, sq=300, skv=300, hq=4, hkv=2, d=128, dtype=BF16):
+    q, k, v = _qkv(b, sq, skv, hq, hkv, d, dtype)
+    return q, k, v, q.clone(), q.clone(), torch.zeros((b, hq, sq))
+
+
+@pytest.mark.parametrize("d", [16, 40, 64, 72, 128, 200, 256])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_bwd_plan_fits_shared_memory(dtype, d):
+    """Both passes' tiles fit a block's shared memory at every head_dim;
+    bf16 runs two consumer warpgroups and a producer (64 keys each, or
+    both on 64 keys at d 256), fp32 256 threads."""
+    pl = fa.bwd_plan(*_bwd(d=d, dtype=dtype), None, SMS)
+    assert pl.d_pad == (64 if d <= 64 else 128 if d <= 128 else 256)
+    assert max(pl.kv_smem, pl.dq_smem) <= fa.SMEM_LIMIT
+    if dtype == BF16:
+        assert pl.threads == 384 and pl.q_tile == 64 and pl.dq_rows == 128
+        assert pl.keys == (64 if pl.d_pad == 256 else 128)
+        assert min(pl.kv_stages, pl.dq_stages) >= 2
+    else:
+        assert pl.threads == 256 and pl.head_split == 1
+    assert pl.sq_pad % 128 == 0 and 0 <= pl.sq_pad - 300 < 128
+
+
+def test_bwd_plan_splits_the_group_at_the_training_shape():
+    """qwen2.5-3b's training call (b 8, s 256, 16 q heads over 2 kv heads,
+    d 128): 8 x 2 x 2 key blocks are under 132 SMs, so each GQA group of
+    8 q heads is split, to at least 132 blocks: 8 blocks of one head
+    each, 256 blocks, fp32 partials of dK and dV for each split, and a
+    reduce; row 5's shape (b 8, s 2048, 16 heads) needs no split."""
+    pl = fa.bwd_plan(*_bwd(8, 256, 256, 16, 2, 128), None, SMS)
+    assert pl.kv_blocks >= SMS and 8 % pl.head_split == 0
+    assert (pl.head_split, pl.kv_blocks, pl.dq_blocks) == (8, 256, 256)
+    assert pl.part_floats == 2 * 8 * (8 * 256 * 2 * 128)
+    assert pl.launches == 4 and pl.reduce_blocks > 0
+    big = fa.bwd_plan(*_bwd(8, 2048, 2048, 16, 16, 128), None, SMS)
+    assert (big.head_split, big.part_floats, big.launches) == (1, 0, 3)
+    assert big.kv_blocks == 8 * 16 * 16
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d", [
+    (8, 256, 16, 2, 128), (2, 1024, 8, 4, 256), (1, 100, 8, 1, 128),
+    (4, 1000, 16, 16, 64), (1, 64, 12, 4, 128), (2, 512, 8, 2, 128)])
+def test_bwd_plan_split_is_the_smallest_divisor_that_fills(b, s, hq, hkv, d):
+    """head_split divides hq / hkv; it is the smallest one that brings (B)
+    to ``SMS`` blocks, or all of the group where none does; (B) has a
+    block per (pair, key tile, split), (C) one per (batch row, q head, q
+    tile), and the split's partials are dK and dV once per split."""
+    pl = fa.bwd_plan(*_bwd(b, s, s, hq, hkv, d), None, SMS)
+    ratio, n_kt = hq // hkv, -(-s // pl.keys)
+    assert ratio % pl.head_split == 0
+    base = b * hkv * n_kt
+    fits = [x for x in range(1, ratio + 1)
+            if ratio % x == 0 and (base >= SMS or base * x >= SMS)]
+    assert pl.head_split == (fits[0] if fits else ratio)
+    assert pl.kv_blocks == base * pl.head_split
+    assert pl.dq_blocks == b * hq * -(-s // pl.dq_rows)
+    n_el = b * s * hkv * d
+    assert pl.part_floats == (2 * pl.head_split * n_el
+                              if pl.head_split > 1 else 0)
+    assert pl.reduce_blocks == (-(-n_el // 1024) if pl.part_floats else 0)
+
+
+def test_bwd_plan_fields_are_the_kernels_order():
+    """``BwdPlan.launch_args`` hands the kernel every field in the order
+    of ``csrc/flash_attention_bwd.cu``'s ``pf::Field``, by which the
+    kernel reads them (``kDPad`` is ``d_pad``)."""
+    src = (pathlib.Path(fa.__file__).parents[1] / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    body = re.search(r"namespace pf \{\s*enum Field \{([^}]*)\}", src)
+    names = [n.strip() for n in body.group(1).split(",")]
+    assert names[-1] == "kFields"
+    snake = [re.sub(r"(?<!^)(?=[A-Z])", "_", n[1:]).lower()
+             for n in names[:-1]]
+    assert snake == [f.name for f in dataclasses.fields(fa.BwdPlan)]
+    pl = fa.bwd_plan(*_bwd(8, 256, 256, 16, 2, 128), None, SMS)
+    assert pl.launch_args() == tuple(getattr(pl, n) for n in snake)
+
+
+def test_bwd_plan_refuses_what_tma_cannot_read():
+    """bf16 q, k, v, o and dO reach the kernel through TMA maps or 16-byte
+    rows: a broadcast (stride 0) axis of extent > 1, a stride off 16
+    bytes or a head_dim off 8 values is refused; fp32 takes them."""
+    q, k, v, o, do, lse = _bwd(hq=4, hkv=1)
+    kb = torch.zeros((2, 300, 1, 128), dtype=BF16).expand(2, 300, 4, 128)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.bwd_plan(q, kb, kb, o, do, torch.zeros((2, 4, 300)), None, SMS)
+    odd = torch.zeros((2, 300, 4, 132), dtype=BF16)[..., :128]
+    with pytest.raises(ValueError, match="TMA"):
+        fa.bwd_plan(q, k, v, odd, do, lse, None, SMS)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.bwd_plan(*_bwd(d=36), None, SMS)
+    qf, kf, vf, of, dof, lsef = _bwd(hq=4, hkv=1, dtype=F32)
+    kbf = kf.expand(2, 300, 4, 128)
+    assert fa.bwd_plan(qf, kbf, kbf, of, dof, torch.zeros((2, 4, 300)),
+                       None, SMS).head_split == 1
+    assert fa.bwd_plan(*_bwd(d=36, dtype=F32), None, SMS).d_pad == 64
+
+
+@pytest.mark.parametrize("case", ["shapes", "dtype", "window", "lse_shape",
+                                  "lse_dtype", "stride"])
+def test_bwd_plan_keeps_the_checks(case):
+    q, k, v, o, do, lse = _bwd()
+    args = {
+        "shapes": (q, k, v, o, do[:, :4], lse),
+        "dtype": (q, k, v, o.float(), do, lse),
+        "window": (q, k, v, o, do, lse),
+        "lse_shape": (q, k, v, o, do, lse[:, :1]),
+        "lse_dtype": (q, k, v, o, do, lse.double()),
+        "stride": (q, k, v, o, do.transpose(2, 3).contiguous()
+                   .transpose(2, 3), lse),
+    }[case]
+    with pytest.raises((ValueError, TypeError)):
+        fa.bwd_plan(*args, 0 if case == "window" else None, SMS)
 
 
 # ---- ssd_scan.plan ----------------------------------------------------- #
