@@ -80,7 +80,12 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    version, beside the least time the card could take and the times of
    the same flops at the fp32 CUDA-core rate and, three products each, at
    the TF32 tensor-core rate (the kernel's split products); no PyTorch
-   call computes an SSD scan, so there is no yardstick;
+   call computes an SSD scan, so there is no yardstick.  Every case also
+   runs ``ssd_scan_states`` (training's forward: the kernel also stores
+   the state entering each chunk), whose states are held to the plain
+   version's (fp32, atol 2e-4) and whose y and final state must be the
+   first call's bits; (a) and (b) are timed with the store too
+   (entries ``<case>_states``);
 1f. ``wgmma.cuh``'s A-from-registers form with an MN-major B (the
    P V product of the bf16 kernel) on a unit tile, (64, k) @ (k, n) for
    k = 16 .. 64 and n = 64, 128, against an fp32 product (atol 1e-5);
@@ -126,6 +131,23 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    o, dO, dq, dk, dv at the HBM rate; 10 d flops per visible (query,
    key) pair at the bf16 or fp32 peak), and its passes' device times
    from a profile (D, dK / dV, the split's reduce, dQ);
+1i. ``ssd_scan_bwd`` (the SSM training path's backward kernel) against
+   ``ssd_scan_bwd_plain`` (the explicit formulas in fp32, chunk by
+   chunk) on the same inputs and the plain forward's states: (a)
+   mamba2-2.7b's training call, bt 4, s 512, 80 heads, p 64, n 128, fp32
+   x, bf16 b / c, chunk 256 (two chunks); (b) bt 8, s 2048 (8 chunks);
+   (c) jamba's SSM, 128 heads, n 16, bt 2, s 1024; (d) s 100 at chunk
+   32 (padded; dy 0 on the tail), with an initial state and a
+   final-state cotangent; (e) bf16 x; (f) p 48, n 64; (g) (a) given the
+   states the forward kernel stored (``ssd_scan_states``).  Tolerance:
+   each gradient within atol 1e-4 x the plain gradient's largest
+   magnitude (a bf16 one also within one bf16 ulp, rtol 2^-7); two calls
+   bit-identical.  (a)-(f) timed (kernel, plain version) beside the
+   bound (inputs read and gradients written once at the HBM rate; the
+   formulas' flops at the fp32 CUDA-core rate or, three products each,
+   at the TF32 rate, whichever is less), with the passes' device times
+   from a profile; no PyTorch call computes an SSD backward, so there is
+   no yardstick;
 2. full-width gptneox-1b (16 layers, d_model 2048, vocab 50432, bf16,
    seeded random weights) through ``ServeEngine.run`` on the card: 8
    requests x 256-token prompts x 64 new tokens, batch 8, max_seq 1024,
@@ -267,6 +289,17 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    ``TRAIN_RESTART_LAYERS`` layers: 2 steps leave a checkpoint, a fresh
    state resumes from it to step 4, and its losses and final params /
    ``m`` / ``v`` / step are bit-identical to 4 uninterrupted steps;
+2o. mamba2-2.7b training at full width and full depth (64 layers, 2.70 B
+   bf16 params, fp32 ``m`` / ``v``), seeded weights, the affine stream,
+   batch 4 x seq 512 (each row crosses an SSD chunk boundary), under
+   ``torch.use_deterministic_algorithms``: ``run_train_loop`` 3 steps
+   at accum 1; exactly 2 x 64 ``ssd_scan`` launches a step (block remat
+   runs each forward twice, both storing the states) and 64
+   ``ssd_scan_bwd``, no plain version; a finite loss and grad norm
+   every step; host s a step, tokens/s, one step profiled (device-busy
+   ms, both kernels' ms, idle share), peak memory.  Then the restart at
+   full width cut to ``TRAIN_RESTART_LAYERS`` layers, as 2n's, at accum
+   1;
 3. the dense path on the card and on the CPU in fp32 with TF32 off, full
    width, 2 layers, the same seeded weights: 2 requests x 32-token
    prompts x 16 new tokens, decode_block 7.  Greedy streams must be
@@ -322,6 +355,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    element in 100 of a leaf beyond, within 2 x the summed lr; the K
    bias, whose gradient is tiny, within that bound), ``m`` /
    ``v`` rtol 1e-4 / atol 1e-4 x the leaf's largest magnitude;
+3j. SSM training card against CPU the same way (fp32, TF32 off for
+   matmuls and cuDNN, 3 steps at accum 1 each from the CPU's state, 3i's
+   tolerances): mamba2-2.7b at full width cut to 2 layers on 2 x
+   300-token rows (padding, and two chunks at chunk 256), and
+   jamba-v0.1-52b reduced (MoE, attention beside the SSM) on 2 x 64;
+   the card's steps launch ``ssd_scan`` twice and ``ssd_scan_bwd`` once
+   an SSM layer (and the attention kernels once and twice an attention
+   layer), no plain version;
 4. the probe suite ``repro_torch.launch.characterize`` on the card at the
    reference example's sizes, with every probe kernel's launch count and
    every plain version's call count set to 0 just before and read just
@@ -380,9 +421,15 @@ PROBE_SOURCES = {
               "src/repro/kernels/probe_chase.py:37"),
     "mma_probe": ("src/repro_torch/csrc/probe_mma.cu",
                   "src/repro/kernels/probe_mma.py:48")}
+SSDB_SOURCE = "src/repro_torch/csrc/ssd_scan_bwd.cu"
+# no Pallas backward exists: the kernel is the backward of row 6's
+# forward and computes what differentiating the XLA ssd_chunked computes
+SSDB_REPLACES = ("src/repro/kernels/ssd_scan.py:71 (backward; "
+                 "src/repro/models/ssm.py:82 ssd_chunked(), "
+                 "differentiated)")
 SOURCES = ("flash_decode", "flash_decode_quant", "qmatmul", "probe_dep_chain",
            "probe_chase", "probe_mma", "ssd_scan", "flash_attention",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "ssd_scan_bwd")
 FORMATS = ("float8_e4m3fn", "float8_e5m2", "float6_e2m3fn",
            "float6_e3m2fn", "float4_e2m1fn")
 TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
@@ -1163,7 +1210,8 @@ def phase1e_ssd_scan(model):
     its sequential oracle (a bf16 y may also differ by one bf16 ulp, rtol
     2^-7: both sides round their fp32 y to bf16).  Cases (f)-(k) are the
     edges of ``ssd_scan.plan``.  Then the times at (a) and (b)."""
-    from repro_torch.kernels.ssd_scan import plan, ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (plan, ssd_scan, ssd_scan_plain,
+                                              ssd_scan_states)
     hbm, peak_bf16 = model.hbm.bandwidth_Bps, model.peak_flops["bfloat16"]
     peak_f32 = model.vector_flops["float32"]
     peak_tf32 = model.peak_flops["float32"]
@@ -1194,9 +1242,11 @@ def phase1e_ssd_scan(model):
         args = ssd_case(**spec)
         x, dt_a, b, c, state = args
         y, st = ssd_scan(x, dt_a, b, c, chunk=chunk, initial_state=state)
+        padded = _pad_seq(args[:4], chunk)
+        y_st, st_st, states = ssd_scan_states(*padded, chunk, state)
         torch.cuda.synchronize()
-        y_want, st_want = ssd_scan_plain(*_pad_seq(args[:4], chunk), chunk,
-                                         state)
+        y_want, st_want, states_want = ssd_scan_plain(*padded, chunk, state,
+                                                      states=True)
         torch.cuda.synchronize()
         y_want = y_want[:, :x.shape[1]]
         if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
@@ -1215,6 +1265,20 @@ def phase1e_ssd_scan(model):
                                    rtol=rtol)
         torch.testing.assert_close(st, st_want, atol=2e-4, rtol=0.0)
         errors[case] = err
+        # training's forward: the same y and state, and the entering states
+        states_err = (states - states_want).abs().max().item()
+        same = (torch.equal(y_st[:, :x.shape[1]], y)
+                and torch.equal(st_st, st))
+        log(f"[kernel] ssd_scan_states {case}: states max_abs_err "
+            f"{states_err:.3e} (tol atol 2e-4; {states.shape[1]} chunks); y "
+            f"and the final state the same bits as without the store: "
+            f"{same}")
+        torch.testing.assert_close(states, states_want, atol=2e-4, rtol=0.0)
+        if not same:
+            raise AssertionError(f"ssd_scan_states {case}: storing the "
+                                 f"states changed y or the final state")
+        errors[case + "_states"] = max(err, states_err)
+        del y_st, st_st, states, states_want
 
     entries = []
     for case, reps in (("a_serving", (25, 12)), ("b_bt8_s2048", (7, 3))):
@@ -1230,10 +1294,19 @@ def phase1e_ssd_scan(model):
         def plain(x, dt_a, b, c, state, chunk=chunk):
             return ssd_scan_plain(x, dt_a, b, c, chunk, state)
 
+        def kern_states(x, dt_a, b, c, state, chunk=chunk):
+            return ssd_scan_states(x, dt_a, b, c, chunk, state)
+
         ms = time_ms(kern, sets, *reps)
+        states_ms = time_ms(kern_states, sets, *reps)
         plain_ms = time_ms(plain, sets[:2], reps=5, n=2)
         bound_ms, bound_by, moved, flops = ssd_bound(*base, chunk, hbm,
                                                      peak_bf16)
+        x = base[0]
+        states_bytes = (x.shape[0] * (x.shape[1] // chunk) * x.shape[2]
+                        * x.shape[3] * base[2].shape[-1] * 4)
+        states_bound, states_by = bound(moved + states_bytes, flops, hbm,
+                                        peak_bf16)
         log(f"[kernel] ssd_scan {case} timing: kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {moved} B, {flops} flop "
@@ -1241,17 +1314,22 @@ def phase1e_ssd_scan(model):
             f"fp32 CUDA-core rate {peak_f32 / 1e12:g} TFLOP/s: "
             f"{flops / peak_f32 * 1e3:.4f} ms; as split TF32 (3 x the "
             f"flops at {peak_tf32 / 1e12:g} TFLOP/s): "
-            f"{3 * flops / peak_tf32 * 1e3:.4f} ms; {len(sets)} input sets")
-        x = base[0]
-        entries.append({
-            "name": f"ssd_scan[{case},bt{x.shape[0]}_s{x.shape[1]}_h"
-                    f"{x.shape[2]}_p{x.shape[3]}_n{base[2].shape[-1]}]",
-            "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
-            "launches": None, "max_abs_err": errors[case], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            # no single PyTorch call computes an SSD scan
-            "library_ms": None})
+            f"{3 * flops / peak_tf32 * 1e3:.4f} ms; {len(sets)} input sets; "
+            f"storing the states ({states_bytes} B) {states_ms:.4f} ms, "
+            f"bound {states_bound:.4f} ms")
+        for suffix, t, bd, by in (("", ms, bound_ms, bound_by),
+                                  ("_states", states_ms, states_bound,
+                                   states_by)):
+            entries.append({
+                "name": f"ssd_scan[{case}{suffix},bt{x.shape[0]}_s"
+                        f"{x.shape[1]}_h{x.shape[2]}_p{x.shape[3]}_n"
+                        f"{base[2].shape[-1]}]",
+                "route": "cuda", "source": SSD_SOURCE,
+                "replaces": SSD_REPLACES, "launches": None,
+                "max_abs_err": errors[case + suffix], "ms": t,
+                "plain_ms": plain_ms, "bound_ms": bd, "bound_by": by,
+                # no single PyTorch call computes an SSD scan
+                "library_ms": None})
     return entries
 
 
@@ -3714,13 +3792,15 @@ def _fa_bwd_bound(spec, flags, hbm, peak):
     return ms, by, moved, flops
 
 
-def _bwd_passes(prof_kern) -> dict:
+def _bwd_passes(prof_kern, prefix: str = "fa_bwd_") -> dict:
     """{backward pass kernel: (device ms, launches)} of a profile's CUDA
-    kernel events (``fa_bwd_dot`` (A), ``fa_bwd_dkdv(_tc)`` (B),
-    ``fa_bwd_reduce`` (R), ``fa_bwd_dq(_tc)`` (C))."""
+    kernel events named ``prefix`` + a word ending in ``_kernel``:
+    ``fa_bwd_dot`` (A), ``fa_bwd_dkdv(_tc)`` (B), ``fa_bwd_reduce`` (R),
+    ``fa_bwd_dq(_tc)`` (C) of ``flash_attention_bwd``; with ``ssdb_``
+    the passes of ``ssd_scan_bwd``."""
     out = {}
     for e in prof_kern:
-        m = re.search(r"fa_bwd_\w+?_kernel", e.key)
+        m = re.search(prefix + r"\w+?_kernel", e.key)
         if m:
             ms, n = out.get(m.group(0), (0.0, 0))
             out[m.group(0)] = (ms + e.self_device_time_total / 1e3,
@@ -3908,25 +3988,218 @@ def phase1h_flash_attention_bwd(model):
         torch.cuda.empty_cache()
     return entries
 
+def _ssd_bwd_bound(x, b, states, dfinal, chunk, hbm, peak_f32, peak_tf32):
+    """(bound ms, bound_by, bytes, flops, fp32 ms, split-TF32 ms) of one
+    backward call: x, dy, dt_a, b, c, the states (and dfinal) read and
+    dx, d dt_a, db, dc, d initial_state written once; per (row, chunk)
+    C·Bᵀ over its causal pairs (2 n a pair), per head M, the quadratic
+    dx, dc and db (2 (2 p + 2 n) a pair) and the four (q, p, n) products
+    (dS' b, dS'ᵀ x, Sᵀ dy, the dS update: 8 q p n).  The flops bound is
+    the fp32 CUDA-core rate or, three products each, the TF32 rate,
+    whichever is less."""
+    bt, s, h, p = x.shape
+    n = b.shape[-1]
+    nc, pairs = s // chunk, chunk * (chunk + 1) // 2
+    flops = bt * nc * (h * (pairs * (4 * p + 4 * n) + 8 * chunk * p * n)
+                       + 2 * pairs * n)
+    moved = (3 * nbytes(x) + 2 * bt * s * h * 4 + 4 * nbytes(b)
+             + nbytes(states) + bt * h * p * n * 4
+             + (nbytes(dfinal) if dfinal is not None else 0))
+    t_f32 = flops / peak_f32 * 1e3
+    t_tf32 = 3 * flops / peak_tf32 * 1e3
+    ms, by = bound(moved, 0, hbm, 1.0)
+    t_ops = min(t_f32, t_tf32)
+    if t_ops > ms:
+        ms, by = t_ops, "operations"
+    return ms, by, moved, flops, t_f32, t_tf32
+
+
+def phase1i_ssd_scan_bwd(model):
+    """``ssd_scan_bwd`` against ``ssd_scan_bwd_plain`` (the explicit
+    formulas in fp32, chunk by chunk) on the card, on the same inputs
+    and the plain forward's states (``ssd_scan_plain(states=True)``):
+    (a) mamba2-2.7b's training call, bt 4, s 512, 80 heads, p 64, n 128,
+    fp32 x, bf16 b / c, chunk 256; (b) bt 8, s 2048; (c) jamba's SSM, 128
+    heads, n 16, bt 2, s 1024; (d) s 100 at chunk 32, padded (dy 0 on
+    the tail, as the slice's backward gives it), with an initial state
+    and a final-state cotangent; (e) bf16 x; (f) p 48, n 64; (g) (a)
+    given the states the forward kernel stored (``ssd_scan_states``).
+    Tolerance: each gradient within atol 1e-4 x the plain gradient's
+    largest magnitude (the order of fp32 sums over up to q positions,
+    80 heads and p; a bf16 gradient also within one bf16 ulp, rtol
+    2^-7: both sides round one fp32 sum); two calls bit-identical (no
+    atomics).  (a)-(f) timed (kernel, plain version) beside the bound
+    (:func:`_ssd_bwd_bound`), the passes' device times from a profile;
+    no PyTorch call computes an SSD backward, so there is no
+    yardstick."""
+    from repro_torch import compat
+    from repro_torch.kernels.ssd_scan import (bwd_plan, ssd_scan_bwd,
+                                              ssd_scan_bwd_plain,
+                                              ssd_scan_plain, ssd_scan_states)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    hbm = model.hbm.bandwidth_Bps
+    peak_f32 = model.vector_flops["float32"]
+    peak_tf32 = model.peak_flops["float32"]
+    bf16 = torch.bfloat16
+    train = dict(bt=4, s=512, h=80, p=64, n=128, bc_dtype=bf16,
+                 with_state=False)
+    # case -> (ssd_case spec, chunk, a final-state cotangent, the forward
+    # kernel's states)
+    cases = {
+        "a_mamba2_train": (dict(train, seed=81), 256, False, False),
+        "b_bt8_s2048": (dict(train, seed=82, bt=8, s=2048), 256, False,
+                        False),
+        "c_jamba_h128_n16": (dict(train, seed=83, bt=2, s=1024, h=128,
+                                  n=16), 256, False, False),
+        "d_s100_chunk32": (dict(seed=84, bt=2, s=100, h=4, p=64, n=128,
+                                bc_dtype=bf16), 32, True, False),
+        "e_bf16_x": (dict(train, seed=85, x_dtype=bf16), 256, False, False),
+        "f_p48_n64": (dict(train, seed=86, p=48, n=64), 256, False, False),
+        "g_kernel_states": (dict(train, seed=87), 256, False, True),
+    }
+
+    def inputs(spec, chunk, with_dfinal, kernel_states, shift=0):
+        seed = spec["seed"] + shift
+        x, dt_a, b, c, h0 = ssd_case(**dict(spec, seed=seed))
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+        x, dt_a, b, c, dy = _pad_seq([x, dt_a, b, c, dy], chunk)
+        bt, _, h, p = x.shape
+        dfinal = (torch.randn((bt, h, p, b.shape[-1]), generator=g,
+                              device="cuda") if with_dfinal else None)
+        _, _, states = ssd_scan_plain(x, dt_a, b, c, chunk, h0, states=True)
+        fwd_states = (ssd_scan_states(x, dt_a, b, c, chunk, h0)[2]
+                      if kernel_states else states)
+        return x, dt_a, b, c, states, fwd_states, dy, dfinal
+
+    entries = []
+    names = ("dx", "d dt_a", "db", "dc", "d initial_state")
+    for case, (spec, chunk, with_dfinal, kernel_states) in cases.items():
+        x, dt_a, b, c, states, fwd_states, dy, dfinal = inputs(
+            spec, chunk, with_dfinal, kernel_states)
+        if kernel_states:
+            torch.cuda.synchronize()
+            st_err = (fwd_states - states).abs().max().item()
+            log(f"[kernel] ssd_scan_bwd {case}: the forward kernel's states "
+                f"max_abs_err {st_err:.3e} against the plain ones")
+        pl = bwd_plan(x, dt_a, b, c, fwd_states, dy, dfinal, chunk,
+                      compat.sm_count(x.device.index))
+        before = ssd_scan_bwd.launches
+        got = ssd_scan_bwd(x, dt_a, b, c, fwd_states, dy, dfinal, chunk)
+        again = ssd_scan_bwd(x, dt_a, b, c, fwd_states, dy, dfinal, chunk)
+        want = ssd_scan_bwd_plain(x, dt_a, b, c, states, dy, dfinal, chunk)
+        torch.cuda.synchronize()
+        if ssd_scan_bwd.launches != before + 2:
+            raise AssertionError(f"ssd_scan_bwd {case}: launches "
+                                 f"{ssd_scan_bwd.launches - before}, not 2")
+        err = 0.0
+        parts = []
+        for name, g_, a_, w_ in zip(names, got, again, want):
+            if not torch.isfinite(g_).all():
+                raise AssertionError(f"ssd_scan_bwd {case}: {name} is not "
+                                     f"finite")
+            if not torch.equal(g_, a_):
+                raise AssertionError(f"ssd_scan_bwd {case}: {name} differs "
+                                     f"between two calls")
+            scale = w_.float().abs().max().item()
+            e = (g_.float() - w_.float()).abs().max().item()
+            rtol = 2.0 ** -7 if g_.dtype == bf16 else 0.0
+            parts.append(f"{name} {e:.3e} of {scale:.4g}")
+            torch.testing.assert_close(g_.float(), w_.float(), rtol=rtol,
+                                       atol=1e-4 * scale, msg=lambda m: (
+                                           f"ssd_scan_bwd {case}: {name}: "
+                                           f"{m}"))
+            err = max(err, e)
+        log(f"[kernel] ssd_scan_bwd {case}: max_abs_err (of max |grad|) "
+            + ", ".join(parts) + f" (tol atol 1e-4 x max |grad|); two "
+            f"calls the same bits; plan: {pl.groups} groups of "
+            f"{pl.heads_per_group} heads, {pl.quad_blocks} blocks a "
+            f"quadratic pass, shared memory {pl.rows_smem} / "
+            f"{pl.cols_smem} B, scratch {pl.scratch_floats * 4} B")
+        del got, again, want
+        if kernel_states:
+            continue
+        sets = [(x, dt_a, b, c, states, dy, dfinal)]
+        per_set = nbytes(*(t for t in sets[0] if t is not None))
+        for j in range(n_sets(per_set) - 1):
+            xj, dtj, bj, cj, sj, _, dyj, dfj = inputs(
+                spec, chunk, with_dfinal, False, shift=100 + j)
+            sets.append((xj, dtj, bj, cj, sj, dyj, dfj))
+
+        def kern(x, dt_a, b, c, states, dy, dfinal, chunk=chunk):
+            return ssd_scan_bwd(x, dt_a, b, c, states, dy, dfinal, chunk)
+
+        def plain(x, dt_a, b, c, states, dy, dfinal, chunk=chunk):
+            return ssd_scan_bwd_plain(x, dt_a, b, c, states, dy, dfinal,
+                                      chunk)
+
+        ms = time_ms(kern, sets, 10, 4)
+        plain_ms = time_ms(plain, sets[:1], reps=3, n=1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(20_000_000)
+            for _ in range(2):
+                kern(*sets[0])
+            torch.cuda.synchronize()
+        passes = _bwd_passes(
+            [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA], "ssdb_")
+        bound_ms, bound_by, moved, flops, t_f32, t_tf32 = _ssd_bwd_bound(
+            x, b, states, dfinal, chunk, hbm, peak_f32, peak_tf32)
+        log(f"[kernel] ssd_scan_bwd {case} timing: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {moved} B at "
+            f"{hbm / 1e12:g} TB/s; {flops} flop: {t_f32:.4f} ms at the fp32 "
+            f"CUDA-core rate {peak_f32 / 1e12:g} TFLOP/s, {t_tf32:.4f} ms as "
+            f"split TF32, 3 x at {peak_tf32 / 1e12:g}); {len(sets)} input "
+            f"sets; passes (profiled, ms a call): "
+            + ", ".join(f"{k} {t / 2:.4f} ({c_} launches)"
+                        for k, (t, c_) in passes.items()))
+        entries.append({
+            "name": f"ssd_scan_bwd[{case},bt{x.shape[0]}_s{x.shape[1]}_h"
+                    f"{x.shape[2]}_p{x.shape[3]}_n{b.shape[-1]}_chunk"
+                    f"{chunk}]",
+            "route": "cuda", "source": SSDB_SOURCE,
+            "replaces": SSDB_REPLACES, "launches": None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes an SSD backward
+            "library_ms": None})
+        del sets, x, dt_a, b, c, states, fwd_states, dy, dfinal
+        torch.cuda.empty_cache()
+    return entries
+
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.detach().contiguous().reshape(-1).view(torch.uint8)
 
 
 def _train_counters():
+    """The training kernels' launches and their plain versions' calls:
+    ``flash_attention`` (fwd) and its backward, ``ssd_scan`` (ssd) and
+    its backward."""
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ssd_scan as kss
     return {"fwd": kfa.flash_attention.launches,
             "bwd": kfa.flash_attention_bwd.launches,
             "fwd_plain": kfa.flash_attention_plain.calls,
             "bwd_plain": kfa.flash_attention_bwd_plain.calls,
-            "lse_plain": kfa.attention_lse_plain.calls}
+            "lse_plain": kfa.attention_lse_plain.calls,
+            "ssd": kss.ssd_scan.launches,
+            "ssd_bwd": kss.ssd_scan_bwd.launches,
+            "ssd_plain": kss.ssd_scan_plain.calls,
+            "ssd_bwd_plain": kss.ssd_scan_bwd_plain.calls}
 
 
 def _zero_train_counters():
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ssd_scan as kss
     kfa.flash_attention.launches = kfa.flash_attention_bwd.launches = 0
     kfa.flash_attention_plain.calls = kfa.flash_attention_bwd_plain.calls = 0
     kfa.attention_lse_plain.calls = 0
+    kss.ssd_scan.launches = kss.ssd_scan_bwd.launches = 0
+    kss.ssd_scan_plain.calls = kss.ssd_scan_bwd_plain.calls = 0
 
 
 def _profile_step(fn):
@@ -4022,9 +4295,9 @@ def phase2n_training():
             _zero_train_counters()
             state, rows, secs = _train_run(step_fn, state, stream, 3)
             counts = _train_counters()
-            want = {"fwd": 3 * 2 * cfg.n_layers * accum,
-                    "bwd": 3 * cfg.n_layers * accum, "fwd_plain": 0,
-                    "bwd_plain": 0, "lse_plain": 0}
+            want = dict.fromkeys(counts, 0)
+            want.update(fwd=3 * 2 * cfg.n_layers * accum,
+                        bwd=3 * cfg.n_layers * accum)
             if counts != want:
                 raise AssertionError(f"2n accum {accum}: launches {counts}, "
                                      f"expected {want}")
@@ -4091,6 +4364,178 @@ def phase2n_training():
         torch.use_deterministic_algorithms(False)
 
 
+def _ssm_layers(cfg):
+    """(SSM layers, attention layers) of ``cfg``'s stack."""
+    pattern = cfg.block_pattern()
+    mixers = [pattern[i % len(pattern)].mixer for i in range(cfg.n_layers)]
+    return mixers.count("ssm"), mixers.count("attn")
+
+
+def phase2o_ssm_training():
+    """mamba2-2.7b training at full width and full depth (64 layers),
+    bf16, fp32 ``m`` / ``v``, seeded weights, the affine stream, batch 4
+    x seq 512 (each row crosses an SSD chunk boundary inside both
+    kernels), under ``torch.use_deterministic_algorithms``: through
+    ``run_train_loop``, 3 steps at accum 1 (counts set to 0 just before
+    and read just after: 2 x 64 ``ssd_scan`` launches a step, the forward
+    again under block remat, both storing the states, and 64
+    ``ssd_scan_bwd``; no plain version), each step's host time,
+    tokens/s, one step profiled (device-busy ms, both kernels' ms, the
+    backward's passes, idle share) and the peak memory.  Then the
+    restart at full width cut to ``TRAIN_RESTART_LAYERS`` layers: 4
+    steps uninterrupted against 2 steps that leave a checkpoint and a
+    fresh state that resumes from it to step 4, bit-identical."""
+    import shutil
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticConfig, SyntheticStream
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig, Schedule
+    from repro_torch.train import make_train_step, train_state_init
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg = get_config("mamba2-2.7b")
+        b, s = 4, 512
+        opt = AdamWConfig(
+            schedule=Schedule(peak_lr=3e-3, warmup_steps=20, decay_steps=6),
+            m_dtype="bfloat16" if cfg.fsdp else "float32",
+            factored_v=cfg.fsdp)
+        stream = SyntheticStream(cfg, b, s, SyntheticConfig(kind="affine"),
+                                 device="cuda")
+        model = build_model(cfg)
+        state = train_state_init(
+            model, opt, torch.Generator(device="cuda").manual_seed(0),
+            "cuda")
+        n_params = sum(t.numel() for t in bridge.flatten(
+            state["params"]).values())
+        n_ssm, _ = _ssm_layers(cfg)
+        log(f"[train 2o] {cfg.name}: {cfg.n_layers} layers ({n_ssm} SSM), "
+            f"{n_params} params ({cfg.param_dtype}), batch {b} x seq {s}, "
+            f"chunk {cfg.ssm_chunk}, AdamW m {opt.m_dtype}, factored v "
+            f"{opt.factored_v}")
+        step_fn = make_train_step(model, opt, accum_steps=1)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_train_counters()
+        state, rows, secs = _train_run(step_fn, state, stream, 3)
+        counts = _train_counters()
+        want = dict.fromkeys(counts, 0)
+        want.update(ssd=3 * 2 * n_ssm, ssd_bwd=3 * n_ssm)
+        if counts != want:
+            raise AssertionError(f"2o: launches {counts}, expected {want}")
+        peak = torch.cuda.max_memory_allocated()
+        batch = stream.batch(3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        fwd_ms = sum(e.self_device_time_total for e in kern
+                     if "ssd_scan_kernel" in e.key) / 1e3
+        passes = _bwd_passes(kern, "ssdb_")
+        bwd_ms = sum(t for t, _ in passes.values())
+        top = [(e.key[:50], e.count, e.self_device_time_total / 1e3)
+               for e in sorted(kern, key=lambda e: -e.self_device_time_total)
+               [:6]]
+        _, wall = _timed(lambda: step_fn(state, batch))
+        step_s = statistics.median(secs[1:])
+        log(f"[train 2o] steps {rows}; host s a step "
+            f"{[round(x, 4) for x in secs]} (median of the last two "
+            f"{step_s:.4f} s, {b * s / step_s:.1f} tokens/s); launches a "
+            f"step ssd_scan {counts['ssd'] // 3} ssd_scan_bwd "
+            f"{counts['ssd_bwd'] // 3}; one profiled step: device busy "
+            f"{busy:.2f} ms of {wall * 1e3:.2f} ms wall (idle "
+            f"{1 - busy / (wall * 1e3):.3f}), ssd_scan {fwd_ms:.2f} ms, "
+            f"ssd_scan_bwd {bwd_ms:.2f} ms ({bwd_ms / busy:.3f} of busy; "
+            + ", ".join(f"{k} {t:.2f} ms x {c}" for k, (t, c) in
+                        passes.items())
+            + f"); peak memory {peak / 2**30:.2f} GiB; top {top}")
+        out = {"step_s": step_s, "tok_s": b * s / step_s, "busy_ms": busy,
+               "wall_ms": wall * 1e3, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+               "peak_gib": peak / 2**30,
+               "fwd_launches": counts["ssd"] // 3,
+               "bwd_launches": counts["ssd_bwd"] // 3}
+        del state, step_fn, batch, prof, kern
+        torch.cuda.empty_cache()
+
+        cut = dataclasses.replace(cfg, n_layers=TRAIN_RESTART_LAYERS)
+        model = build_model(cut)
+        step_fn = make_train_step(model, opt, accum_steps=1)
+        ckpt = str(ROOT / "build" / "ckpt_2o")
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+        def fresh():
+            return train_state_init(
+                model, opt, torch.Generator(device="cuda").manual_seed(1),
+                "cuda")
+
+        straight, rows_u, _ = _train_run(step_fn, fresh(), stream, 4)
+        _, rows_a, _ = _train_run(step_fn, fresh(), stream, 2, ckpt)
+        ck_bytes = sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, fs in os.walk(ckpt) for f in fs)
+        resumed, rows_b, _ = _train_run(step_fn, fresh(), stream, 4, ckpt)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        if rows_a + rows_b != rows_u:
+            raise AssertionError(f"2o restart: losses {rows_a + rows_b} != "
+                                 f"uninterrupted {rows_u}")
+        got, want = bridge.flatten(resumed), bridge.flatten(straight)
+        for k in want:
+            if not torch.equal(_bits(got[k]), _bits(want[k])):
+                raise AssertionError(f"2o restart: {k} is not bit-identical")
+        log(f"[train 2o] restart at {TRAIN_RESTART_LAYERS} of "
+            f"{cfg.n_layers} layers, full width, accum 1: checkpoint at "
+            f"step 2 ({ck_bytes} bytes); resumed losses {rows_b} equal the "
+            f"uninterrupted run's, and {len(want)} leaves of params / m / v "
+            f"/ step bit-identical")
+        del straight, resumed, got, want
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _compare_train_states(tag: str, n: int, card, cpu, lr_sum: float):
+    """Phase 3i's comparison of a card train state with the CPU's after
+    step ``n``: the step count equal; every param within rtol 1e-4 /
+    atol 1e-6 but for at most 1 element in 100 of a leaf, within 2 x
+    the summed lr ``lr_sum``; the K bias within that bound; ``m`` and
+    ``v`` within rtol 1e-4 / atol 1e-4 x the leaf's largest magnitude.
+    Returns (the card's flat state, the largest difference, (the largest
+    share of a leaf beyond rtol / atol, that leaf))."""
+    from repro_torch import bridge
+    got = bridge.flatten(card)
+    worst, worst_frac = 0.0, (0.0, None)
+    for k, w in bridge.flatten(cpu).items():
+        g, w = got[k].detach(), w.detach().to("cuda")
+        if k == "opt/step":
+            if int(g) != int(w):
+                raise AssertionError(f"{tag}: step {g} != {w}")
+            continue
+        diff = (g - w).abs()
+        if k.endswith("/attn/bk") and k.startswith("params"):
+            ok = bool((diff <= 2 * lr_sum).all())
+        elif k.startswith("params"):
+            bad = diff > 1e-6 + 1e-4 * w.abs()
+            frac = int(bad.sum()) / w.numel()
+            ok = frac <= 0.01 and bool((diff[bad] <= 2 * lr_sum).all())
+            if frac > worst_frac[0]:
+                worst_frac = (frac, k)
+        else:
+            tol = 1e-4 * float(w.abs().max())
+            ok = bool((diff <= tol + 1e-4 * w.abs()).all())
+        if not ok:
+            raise AssertionError(
+                f"{tag} step {n}: {k} max diff {float(diff.max()):.3e}, "
+                f"{int((diff > 1e-6 + 1e-4 * w.abs()).sum())} of "
+                f"{w.numel()} beyond rtol 1e-4 / atol 1e-6 (2 x summed lr "
+                f"{2 * lr_sum:.3e})")
+        worst = max(worst, float(diff.max()))
+    return got, worst, worst_frac
+
+
 def phase3i_train_parity():
     """Training card against CPU in fp32, TF32 off: qwen2.5-3b at full
     width cut to 2 layers, the same seeded weights and batches (2 x 64
@@ -4146,8 +4591,8 @@ def phase3i_train_parity():
                 t_cpu, t0 = time.perf_counter() - t0, time.perf_counter()
                 n += 1
                 lr_sum += float(opt.schedule(n))
-                want_c = {"fwd": 2 * 2 * accum, "bwd": 2 * accum,
-                          "fwd_plain": 0, "bwd_plain": 0, "lse_plain": 0}
+                want_c = dict.fromkeys(counts, 0)
+                want_c.update(fwd=2 * 2 * accum, bwd=2 * accum)
                 if counts != want_c:
                     raise AssertionError(f"3i: card launches {counts}, "
                                          f"expected {want_c}")
@@ -4156,35 +4601,8 @@ def phase3i_train_parity():
                     if abs(g - w) > 1e-5 * abs(w):
                         raise AssertionError(f"3i step {n}: {name} card {g} "
                                              f"cpu {w}")
-                got = bridge.flatten(card)
-                worst, worst_frac = 0.0, (0.0, None)
-                for k, w in bridge.flatten(cpu).items():
-                    g, w = got[k].detach(), w.detach().to("cuda")
-                    if k == "opt/step":
-                        if int(g) != int(w):
-                            raise AssertionError(f"3i: step {g} != {w}")
-                        continue
-                    diff = (g - w).abs()
-                    if k.endswith("/attn/bk") and k.startswith("params"):
-                        ok = bool((diff <= 2 * lr_sum).all())
-                    elif k.startswith("params"):
-                        bad = diff > 1e-6 + 1e-4 * w.abs()
-                        frac = int(bad.sum()) / w.numel()
-                        ok = frac <= 0.01 and bool(
-                            (diff[bad] <= 2 * lr_sum).all())
-                        if frac > worst_frac[0]:
-                            worst_frac = (frac, k)
-                    else:
-                        tol = 1e-4 * float(w.abs().max())
-                        ok = bool((diff <= tol + 1e-4 * w.abs()).all())
-                    if not ok:
-                        raise AssertionError(
-                            f"3i step {n}: {k} max diff "
-                            f"{float(diff.max()):.3e}, "
-                            f"{int((diff > 1e-6 + 1e-4 * w.abs()).sum())} "
-                            f"of {w.numel()} beyond rtol 1e-4 / atol 1e-6 "
-                            f"(2 x summed lr {2 * lr_sum:.3e})")
-                    worst = max(worst, float(diff.max()))
+                got, worst, worst_frac = _compare_train_states(
+                    "3i", n, card, cpu, lr_sum)
                 log(f"[train 3i] step {n} (accum {accum}): loss card "
                     f"{float(mg['loss']):.7f} cpu {float(mc['loss']):.7f}, "
                     f"grad_norm card {float(mg['grad_norm']):.6f} cpu "
@@ -4201,6 +4619,94 @@ def phase3i_train_parity():
                         got[k].copy_(w)
         del card, cpu
         torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = cuda_tf32
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+def phase3j_ssm_train_parity():
+    """SSM training card against CPU in fp32 with TF32 off (matmuls and
+    cuDNN: ``causal_conv1d`` reaches it), as 3i: mamba2-2.7b at full
+    width cut to 2 layers on 2 x 300-token rows (s padded to 512: two
+    chunks at chunk 256), and jamba-v0.1-52b reduced (MoE, attention
+    beside the SSM) on 2 x 64 tokens (two chunks of 32); the same seeded
+    weights and batches, 3 steps at accum 1, each from the CPU's state;
+    3i's tolerances (:func:`_compare_train_states`).  Each card step
+    launches ``ssd_scan`` twice and ``ssd_scan_bwd`` once an SSM layer
+    (``flash_attention`` twice and its backward once an attention
+    layer), no plain version; the CPU's steps run the plain versions."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig, Schedule
+    from repro_torch.train import make_train_step, train_state_init
+    cuda_tf32 = torch.backends.cuda.matmul.allow_tf32
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = (("mamba2-2.7b", dataclasses.replace(
+                    get_config("mamba2-2.7b"), n_layers=2,
+                    param_dtype="float32", compute_dtype="float32"),
+                 (2, 300)),
+                ("jamba-v0.1-52b reduced",
+                 get_config("jamba-v0.1-52b").reduced(), (2, 64)))
+        for label, cfg, shape in runs:
+            model = build_model(cfg)
+            opt = AdamWConfig(schedule=Schedule(peak_lr=3e-3,
+                                                warmup_steps=0,
+                                                decay_steps=10))
+            t0 = time.perf_counter()
+            cpu = train_state_init(model, opt,
+                                   torch.Generator().manual_seed(0), "cpu")
+            card = bridge.unflatten({k: t.detach().to("cuda", copy=True)
+                                     for k, t in bridge.flatten(cpu).items()})
+            n_ssm, n_attn = _ssm_layers(cfg)
+            log(f"[train 3j] {label}: {cfg.n_layers} layers ({n_ssm} SSM, "
+                f"{n_attn} attention), rows {shape}; init on the CPU and "
+                f"copy to the card: {time.perf_counter() - t0:.1f} s")
+            rng = np.random.default_rng(10)
+            steps = {dev: make_train_step(model, opt, accum_steps=1)
+                     for dev in ("cpu", "cuda")}
+            lr_sum = 0.0
+            for n in range(1, 4):
+                tokens = torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, shape).astype(np.int32))
+                _zero_train_counters()
+                (card, mg), t_card = _timed(
+                    lambda: steps["cuda"](card, {"tokens": tokens.cuda()}))
+                counts = _train_counters()
+                t0 = time.perf_counter()
+                cpu, mc = steps["cpu"](cpu, {"tokens": tokens})
+                t_cpu, t0 = time.perf_counter() - t0, time.perf_counter()
+                lr_sum += float(opt.schedule(n))
+                want = dict.fromkeys(counts, 0)
+                want.update(ssd=2 * n_ssm, ssd_bwd=n_ssm, fwd=2 * n_attn,
+                            bwd=n_attn)
+                if counts != want:
+                    raise AssertionError(f"3j {label}: card launches "
+                                         f"{counts}, expected {want}")
+                for name in ("loss", "grad_norm"):
+                    g, w = float(mg[name]), float(mc[name])
+                    if abs(g - w) > 1e-5 * abs(w):
+                        raise AssertionError(f"3j {label} step {n}: {name} "
+                                             f"card {g} cpu {w}")
+                got, worst, worst_frac = _compare_train_states(
+                    f"3j {label}", n, card, cpu, lr_sum)
+                log(f"[train 3j] {label} step {n}: loss card "
+                    f"{float(mg['loss']):.7f} cpu {float(mc['loss']):.7f}, "
+                    f"grad_norm card {float(mg['grad_norm']):.6f} cpu "
+                    f"{float(mc['grad_norm']):.6f}; state max abs diff "
+                    f"{worst:.3e}; params beyond rtol 1e-4 / atol 1e-6: at "
+                    f"most {worst_frac[0]:.4%} of a leaf ({worst_frac[1]}); "
+                    f"card launches ssd_scan {counts['ssd']} ssd_scan_bwd "
+                    f"{counts['ssd_bwd']}; s card {t_card:.2f}, CPU "
+                    f"{t_cpu:.2f}, compare {time.perf_counter() - t0:.2f}")
+                with torch.no_grad():
+                    for k, w in bridge.flatten(cpu).items():
+                        got[k].copy_(w)
+            del card, cpu, steps
+            torch.cuda.empty_cache()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = cuda_tf32
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
@@ -4263,7 +4769,8 @@ def main() -> int:
     fa_entries = phase1f_flash_attention(model)
     modal_entries = phase1g_modal_shapes(hbm, peak_bf16)
     fab_entries = phase1h_flash_attention_bwd(model)
-    stamp("1-1h")
+    ssdb_entries = phase1i_ssd_scan_bwd(model)
+    stamp("1-1i")
 
     # ---- 2: full-width serving, then the GEMM path ------------------- #
     cfg = get_config("gptneox-1b")
@@ -4309,6 +4816,8 @@ def main() -> int:
     stamp("2m")
     train = phase2n_training()
     stamp("2n")
+    ssm_train = phase2o_ssm_training()
+    stamp("2o")
     modal_paths = {
         "2k seamless dense serving": seamless["dense"]["launches"],
         "2k seamless float8_e4m3fn serving": seamless["float8_e4m3fn"][
@@ -4350,7 +4859,11 @@ def main() -> int:
                       "2h jamba whole sequence": jamba["whole"][
                           "ssd_launches"],
                       "2m mamba2 n-gram serving": spec["mamba2 n-gram"][
-                          "launches"]["ssd_scan"]}
+                          "launches"]["ssd_scan"],
+                      "2o mamba2-2.7b training": ssm_train["fwd_launches"]}
+    for e in ssdb_entries:
+        e["launches"] = ssm_train["bwd_launches"]
+        e["paths"] = {"2o mamba2-2.7b training": ssm_train["bwd_launches"]}
     train_paths = {f"2n qwen2.5-3b training accum {a}": t for a, t in
                    train.items()}
     for e in fab_entries:
@@ -4381,7 +4894,8 @@ def main() -> int:
     phase3g_modal_parity()
     phase3h_spec_parity(model3, params3)
     phase3i_train_parity()
-    stamp("3-3i")
+    phase3j_ssm_train_parity()
+    stamp("3-3j")
 
     # ---- 4: the probe suite -------------------------------------------- #
     counts = phase4_characterize()
@@ -4397,7 +4911,7 @@ def main() -> int:
     print(json.dumps({"kernels": [*fd_entries, *fdq_entries, *qmm_entries,
                                   *probe_entries, *ssd_entries,
                                   *fa_entries, *modal_entries,
-                                  *fab_entries]}))
+                                  *fab_entries, *ssdb_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

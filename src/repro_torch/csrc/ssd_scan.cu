@@ -11,7 +11,12 @@
 //   y   = ((C·Bᵀ) ⊙ L) x + (C · stateᵀ) ⊙ exp(acs),
 //         L[i,j] = exp(acs_i - acs_j) for i >= j, else 0
 //   state <- state * exp(acs_last) + xᵀ (B ⊙ exp(acs_last - acs))
-// y is written at x's dtype; the final state in fp32.
+// y is written at x's dtype; the final state in fp32.  With a states
+// pointer (training's forward) each block also stores its slice of the
+// state entering every chunk, (bt, s / q, h, p, n) fp32, at the chunk's
+// first sub-chunk: what the backward (ssd_scan_bwd.cu) reads.  Serving
+// and prefill pass nullptr and run an instantiation without the store
+// (kStates false), so they pay nothing for it.
 //
 // What bounds it.  At the serving shape (q = 256, p = 64, n = 128, 80
 // heads, x fp32, b / c bf16) the function moves 16 MB and needs about 2
@@ -142,6 +147,7 @@ struct Params {
   const float* h0;
   void* y;
   float* state;
+  float* states;   // (bt, s / q, h, p, n) entering states, or nullptr
   int s, h, p, n, q, splits, vec;
 };
 
@@ -637,7 +643,9 @@ __device__ __forceinline__ void state_tile(const unsigned char* b_t,
   }
 }
 
-template <typename TX, typename TBC, int PW>
+// kStates: store the state entering each chunk (training's forward); the
+// serving instantiations compile without the store
+template <typename TX, typename TBC, int PW, bool kStates>
 __global__ void __launch_bounds__(kThreads, 2)
     ssd_scan_kernel(const __grid_constant__ Params P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -769,6 +777,24 @@ __global__ void __launch_bounds__(kThreads, 2)
     const unsigned char* x_s = b_s + L.x_off;
     const float* sc = scal(st);
 
+    // the state entering a chunk, for the backward: at its first
+    // sub-chunk the slice holds exactly that (the barrier above made the
+    // last update visible; the next update waits on the barrier below)
+    if constexpr (kStates) {
+      if (row0 % q == 0) {
+        float* dst =
+            P.states +
+            ((static_cast<size_t>(bi) * (s / q) + row0 / q) * h + hi) *
+                static_cast<size_t>(p) * n +
+            static_cast<size_t>(p0) * n;
+#pragma unroll 1
+        for (int e = threadIdx.x; e < PW * kMaxN; e += kThreads) {
+          const int r = e / kMaxN, k = e % kMaxN;
+          if (r < pv && k < n) dst[r * n + k] = st_s[r * L.st_stride + k];
+        }
+      }
+    }
+
     if (16 * rg < rows) {
       TX* out = static_cast<TX*>(P.y) + ((row_base + row0) * h + hi) * p +
                 p0;
@@ -830,14 +856,21 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename TX, typename TBC, int PW>
-int launch(const Params& prm, int blocks, int smem, cudaStream_t stream) {
-  auto kernel = ssd_scan_kernel<TX, TBC, PW>;
+template <typename TX, typename TBC, int PW, bool kStates>
+int launch_k(const Params& prm, int blocks, int smem, cudaStream_t stream) {
+  auto kernel = ssd_scan_kernel<TX, TBC, PW, kStates>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<blocks, kThreads, smem, stream>>>(prm);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TX, typename TBC, int PW>
+int launch(const Params& prm, int blocks, int smem, cudaStream_t stream) {
+  return prm.states != nullptr
+             ? launch_k<TX, TBC, PW, true>(prm, blocks, smem, stream)
+             : launch_k<TX, TBC, PW, false>(prm, blocks, smem, stream);
 }
 
 template <typename TX, typename TBC>
@@ -851,10 +884,11 @@ int launch_pw(int pw, const Params& prm, int blocks, int smem,
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, for x (and y) and for b / c;
-// dt_a, the initial state (nullptr: zeros) and the final state are
-// float32.  Every tensor is contiguous; s >= 1 is a multiple of the
-// chunk q.  The plan (kernels/ssd_scan.py::plan): slices of pw columns of
-// p (16, 32 or 64; splits = ceil(p / pw) of them), vec = 1 when every row
+// dt_a, the initial state (nullptr: zeros), the final state and the
+// entering states (nullptr: not stored) are float32.  Every tensor is
+// contiguous; s >= 1 is a multiple of the chunk q.  The plan
+// (kernels/ssd_scan.py::plan): slices of pw columns of p (16, 32 or 64;
+// splits = ceil(p / pw) of them), vec = 1 when every row
 // and pointer lies on 16 bytes (TMA copies; else element copies), and the
 // shared memory it computed (n is padded to kMaxN in shared memory); a
 // plan that disagrees with this file's layout is refused.
@@ -862,7 +896,8 @@ int launch_pw(int pw, const Params& prm, int blocks, int smem,
 extern "C" int repro_ssd_scan(int x_dtype, int bc_dtype, const void* x,
                               const void* dt_a, const void* b,
                               const void* c, const void* h0, void* y,
-                              void* state, int bt, int s, int h, int p,
+                              void* state, void* states, int bt, int s,
+                              int h, int p,
                               int n, int q, int pw, int splits, int vec,
                               int smem_bytes, void* stream) {
   if (bt < 0 || h < 1 || p < 1 || p > kMaxP || n < 1 || n > kMaxN ||
@@ -884,6 +919,7 @@ extern "C" int repro_ssd_scan(int x_dtype, int bc_dtype, const void* x,
   prm.h0 = static_cast<const float*>(h0);
   prm.y = y;
   prm.state = static_cast<float*>(state);
+  prm.states = static_cast<float*>(states);
   prm.s = s;
   prm.h = h;
   prm.p = p;

@@ -14,8 +14,9 @@ the Fig 4/5 sweep: ``mma_products`` in bf16 at 128^3 over batch 1, 2,
 at each point), ``1e`` (``ssd_scan``: its cases, then (a) the serving
 call and (b) bt 8 x s 2048 timed), ``1f`` (``flash_attention``), ``1h``
 (``flash_attention_bwd``, each tree's backward with its own forward and
-signature).  Phases 1-1c take the HBM rate and the bf16 peak, 1d-1h the
-device model.  Run it by path, not with ``-m``: each child imports
+signature), ``1i`` (``ssd_scan_bwd``: its cases, (a)-(f) timed; a tree
+without the phase fails it).  Phases 1-1c take the HBM rate and the
+bf16 peak, 1d-1i the device model.  Run it by path, not with ``-m``: each child imports
 ``chip_smoke`` and ``repro_torch`` from its own tree.  It prints each run's timed cases (kernel, plain and
 PyTorch-call ms, the bound, max |err|), then one line per case with the
 times of every run (a case one tree does not time shows "-"), and the
@@ -44,6 +45,8 @@ PHASES = {"1": ("phase1_flash_decode", ("flash_decode",), "rates"),
           "1f": ("phase1f_flash_attention", ("flash_attention",), "model"),
           "1h": ("phase1h_flash_attention_bwd", ("flash_attention",
                                                  "flash_attention_bwd"),
+                 "model"),
+          "1i": ("phase1i_ssd_scan_bwd", ("ssd_scan", "ssd_scan_bwd"),
                  "model")}
 KEEP = ("name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "max_abs_err")

@@ -14,6 +14,14 @@ straggler watchdog, heartbeat).  ``--device cpu --reduced`` runs the
 same path on the host with the kernels' plain versions.  ``--layers``
 cuts the depth (whole periods; width is never cut).
 
+Every family trains: attention through ``flash_attention`` and its
+backward kernel, the SSD blocks of mamba2-2.7b and jamba-v0.1-52b
+through ``ssd_scan`` and its backward kernel (``--arch mamba2-2.7b``
+trains at full width and depth on one 80 GB card, ~32 GB of state).
+jamba-v0.1-52b (13.3 B params a period of 8 layers, ~159 GB of training
+state) trains at full width only once sharding lands (its config says
+``fsdp``); on one card take ``--reduced``.
+
 The reference's ``--production-mesh`` and ``--multi-pod`` wait for mesh
 serving: one card, no mesh, here.
 """
@@ -40,7 +48,10 @@ def main(argv=None) -> list:
         description="Train on one card (no mesh: the reference's "
                     "--production-mesh / --multi-pod wait for mesh "
                     "serving).")
-    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--arch", default="qwen2.5-3b",
+                    help="any config; jamba-v0.1-52b trains at full width "
+                         "only once sharding lands (one period is ~159 GB "
+                         "of training state): take --reduced")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)

@@ -107,12 +107,14 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
 def ssd_chunked(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
                 c: torch.Tensor, chunk: int,
                 initial_state: Optional[torch.Tensor] = None,
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                return_states: bool = False):
     """Chunk-parallel SSD, the plain version of the ``ssd_scan`` kernel.
 
     x (bt, s, h, p) already discretized (x * dt); dt_a (bt, s, h) the
     per-step log decay; b, c (bt, s, n); s a multiple of ``chunk``.
-    Returns (y (bt, s, h, p), final_state (bt, h, p, n)), all fp32."""
+    Returns (y (bt, s, h, p), final_state (bt, h, p, n)), all fp32;
+    with ``return_states`` also the state entering each chunk,
+    (bt, s / chunk, h, p, n) fp32, which the backward reads."""
     bt, s, h, p = x.shape
     n = b.shape[-1]
     if s % chunk:
@@ -146,6 +148,8 @@ def ssd_chunked(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", cm, prev_states,
                          state_decay)
     y = (y_diag + y_off).reshape(bt, s, h, p)
+    if return_states:
+        return y, state, prev_states
     return y, state
 
 

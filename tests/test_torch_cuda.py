@@ -34,7 +34,10 @@ sqrt(k).  ``ssd_scan``
 inputs): y and the final state atol 2e-4, the tolerance of the reference's own kernel test against its
 sequential oracle (``tests/test_kernels.py``); a bf16 y may also
 differ by one bf16 ulp (rtol 2^-7: both sides round their fp32 y to
-bf16).  ``flash_attention``, the tolerances of the reference's own
+bf16); its backward ``ssd_scan_bwd`` (fp32 on the CUDA cores) against
+``ssd_scan_bwd_plain`` within atol 1e-4 x the largest magnitude of each
+gradient (fp32 sums in another order), a bf16 gradient also within one
+bf16 ulp.  ``flash_attention``, the tolerances of the reference's own
 kernel test (``tests/test_kernels.py``): fp32 atol 2e-5; bf16 atol 2e-2
 (the plain version rounds the normalized p to bf16 before PV, as the
 reference does, the kernel the running-max p; both accumulate in fp32),
@@ -1559,6 +1562,219 @@ def test_train_step_card_matches_cpu(cuda):
         elif key.startswith("params"):
             bad = np.abs(got - want) > 1e-6 + 1e-4 * np.abs(want)
             assert bad.sum() <= want.size // 1000, key
+            np.testing.assert_allclose(got[bad], want[bad], atol=2 * lr,
+                                       rtol=0, err_msg=key)
+        else:
+            np.testing.assert_allclose(
+                got, want, rtol=1e-4,
+                atol=1e-5 * float(np.abs(want).max(initial=0.0)),
+                err_msg=key)
+
+
+# --------------------------------------------------------------------- #
+# ssd_scan's backward (training through the SSD scan)
+# --------------------------------------------------------------------- #
+
+def _ssd_bwd_inputs(seed, bt, s, h, p, n, chunk, x_dtype=F32, bc_dtype=BF16,
+                    with_state=True, with_dfinal=True):
+    """``_ssd_inputs`` padded to the chunk, with dy (x's dtype, 0 on the
+    padded tail), a final-state cotangent and the plain forward's
+    entering states."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    x, dt_a, b, c, h0 = _ssd_inputs(seed, bt, s, h, p, n, x_dtype, bc_dtype,
+                                    with_state)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(x_dtype)
+    pad = (-s) % chunk
+    x, dt_a, b, c, dy = (torch.nn.functional.pad(
+        t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (x, dt_a, b, c, dy))
+    dfinal = (torch.randn((bt, h, p, n), generator=g, device="cuda")
+              if with_dfinal else None)
+    _, _, states = ssd_scan_plain(x, dt_a, b, c, chunk, h0, states=True)
+    return x, dt_a, b, c, h0, states, dy, dfinal
+
+
+@pytest.mark.parametrize("bt,s,h,p,n,chunk,x_dtype,bc_dtype", [
+    (4, 512, 80, 64, 128, 256, F32, BF16),     # mamba2's training call
+    (2, 1024, 128, 64, 16, 256, F32, BF16),    # jamba's SSM
+    (2, 100, 4, 64, 128, 32, F32, BF16),       # padded, 4 chunks
+    (2, 300, 8, 64, 128, 100, BF16, BF16),     # bf16 x, ragged tiles
+    (2, 256, 8, 48, 64, 64, F32, F32),         # fp32 b / c, p 48, n 64
+    (1, 1024, 2, 64, 128, 1024, F32, BF16),    # 16 tiles a chunk
+    (3, 200, 5, 18, 20, 64, F32, BF16),        # odd p and n
+    (1, 64, 1, 16, 8, 16, F32, F32),           # one head, tiny tiles
+])
+def test_ssd_scan_bwd_matches_plain(cuda, bt, s, h, p, n, chunk, x_dtype,
+                                    bc_dtype):
+    """The backward kernel against ``ssd_scan_bwd_plain`` on the same
+    inputs and states: every gradient within atol 1e-4 x the plain one's
+    largest magnitude (fp32 sums in another order; a bf16 gradient also
+    within one bf16 ulp, rtol 2^-7); two calls bit-identical; one launch
+    counted a call."""
+    from repro_torch.kernels import ssd_scan as kss
+    x, dt_a, b, c, _, states, dy, dfinal = _ssd_bwd_inputs(
+        s + chunk, bt, s, h, p, n, chunk, x_dtype, bc_dtype)
+    before = kss.ssd_scan_bwd.launches
+    got = kss.ssd_scan_bwd(x, dt_a, b, c, states, dy, dfinal, chunk)
+    again = kss.ssd_scan_bwd(x, dt_a, b, c, states, dy, dfinal, chunk)
+    want = kss.ssd_scan_bwd_plain(x, dt_a, b, c, states, dy, dfinal, chunk)
+    torch.cuda.synchronize()
+    assert kss.ssd_scan_bwd.launches == before + 2
+    for name, g, a, w, like in zip(("dx", "ddt", "db", "dc", "dh0"), got,
+                                   again, want, (x, dt_a, b, c, dfinal)):
+        assert g.dtype == like.dtype and g.shape == like.shape, name
+        assert torch.isfinite(g).all(), name
+        assert torch.equal(g, a), name
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=2.0 ** -7 if g.dtype == BF16 else 0.0,
+            atol=1e-4 * w.float().abs().max().item(), msg=name)
+
+
+def test_ssd_scan_states_match_plain(cuda):
+    """The forward kernel's entering states against the plain version's
+    (atol 2e-4, as y); y and the final state are the bits of the call
+    that stores nothing."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_states
+    for args, chunk in ((_ssd_inputs(21, 2, 768, 80, 64, 128, F32, BF16),
+                         256),
+                        (_ssd_inputs(22, 2, 200, 4, 48, 64), 64),
+                        (_ssd_inputs(23, 3, 200, 5, 18, 20, F32, BF16), 64)):
+        x, dt_a, b, c, h0 = args
+        pad = (-x.shape[1]) % chunk
+        x, dt_a, b, c = (torch.nn.functional.pad(
+            t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (x, dt_a, b, c))
+        y, st, states = ssd_scan_states(x, dt_a, b, c, chunk, h0)
+        y0, st0 = ssd_scan(x, dt_a, b, c, chunk=chunk, initial_state=h0)
+        _, _, want = ssd_scan_plain(x, dt_a, b, c, chunk, h0, states=True)
+        torch.cuda.synchronize()
+        assert states.shape == want.shape
+        torch.testing.assert_close(states, want, atol=2e-4, rtol=0.0)
+        assert torch.equal(states[:, 0], h0)
+        assert torch.equal(y, y0) and torch.equal(st, st0)
+
+
+def test_ssd_scan_trains_through_the_kernels(cuda):
+    """``ssd_scan`` with inputs that require grad on the card: one
+    forward launch (storing the states) and one backward launch, no
+    plain version; the gradients of x, dt_a, b, c and the initial state
+    (through the padded tail) match the CPU's (the plain forward and
+    backward) within atol 1e-4 x the largest magnitude."""
+    from repro_torch.kernels import ssd_scan as kss
+    x, dt_a, b, c, h0 = _ssd_inputs(31, 2, 300, 8, 64, 128, F32, F32)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    dy = torch.randn(x.shape, generator=g, device="cuda")
+    dfinal = torch.randn(h0.shape, generator=g, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_(True)
+                  for t in (x, dt_a, b, c, h0)]
+        counts = (kss.ssd_scan.launches, kss.ssd_scan_bwd.launches,
+                  kss.ssd_scan_plain.calls, kss.ssd_scan_bwd_plain.calls)
+        y, final = kss.ssd_scan(*leaves[:4], chunk=128,
+                                initial_state=leaves[4])
+        loss = (y * dy.to(dev)).sum() + (final * dfinal.to(dev)).sum()
+        grads[dev] = torch.autograd.grad(loss, leaves)
+        delta = tuple(a - b_ for a, b_ in zip(
+            (kss.ssd_scan.launches, kss.ssd_scan_bwd.launches,
+             kss.ssd_scan_plain.calls, kss.ssd_scan_bwd_plain.calls),
+            counts))
+        assert delta == ((1, 1, 0, 0) if dev == "cuda" else (0, 0, 1, 1))
+    for name, got, want in zip(("x", "dt_a", "b", "c", "h0"), grads["cuda"],
+                               grads["cpu"]):
+        torch.testing.assert_close(got.cpu(), want, rtol=0.0,
+                                   atol=1e-4 * want.abs().max().item(),
+                                   msg=name)
+
+
+def test_ssd_scan_bwd_needs_the_forward_states(cuda):
+    """On the card the backward takes the forward's states or raises,
+    launching nothing."""
+    from repro_torch.kernels import ssd_scan as kss
+    x, dt_a, b, c, _, _, dy, _ = _ssd_bwd_inputs(41, 1, 64, 2, 16, 16, 32)
+    before = kss.ssd_scan_bwd.launches
+    with pytest.raises(ValueError, match="states"):
+        kss.ssd_scan_bwd(x, dt_a, b, c, None, dy, None, 32)
+    assert kss.ssd_scan_bwd.launches == before
+
+
+@pytest.mark.parametrize("field", ["heads_per_group", "nj", "rows_smem",
+                                   "scratch_floats", "tiles"])
+def test_ssd_scan_bwd_refuses_a_plan_not_its_own(cuda, monkeypatch, field):
+    """The kernel holds ``bwd_plan``'s plan to its own layout: a plan off
+    in one field raises, launching nothing; the true plan runs."""
+    from repro_torch.kernels import ssd_scan as kss
+    x, dt_a, b, c, _, states, dy, dfinal = _ssd_bwd_inputs(
+        43, 2, 256, 8, 64, 128, 128)
+    true_plan = kss.bwd_plan
+
+    def wrong(*args):
+        pl = true_plan(*args)
+        return dataclasses.replace(pl, **{field: getattr(pl, field) + 1})
+
+    monkeypatch.setattr(kss, "bwd_plan", wrong)
+    before = kss.ssd_scan_bwd.launches
+    with pytest.raises(RuntimeError, match="not its own layout"):
+        kss.ssd_scan_bwd(x, dt_a, b, c, states, dy, dfinal, 128)
+    assert kss.ssd_scan_bwd.launches == before
+    monkeypatch.setattr(kss, "bwd_plan", true_plan)
+    kss.ssd_scan_bwd(x, dt_a, b, c, states, dy, dfinal, 128)
+    assert kss.ssd_scan_bwd.launches == before + 1
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b"])
+def test_ssm_train_step_card_matches_cpu(cuda, arch):
+    """One fp32 train step of mamba2 / jamba reduced (TF32 off), card
+    against CPU from the same state and batch, with chip_smoke's phase
+    3i / 3j tolerances: loss and grad_norm rtol 1e-5, every param rtol
+    1e-4 / atol 1e-6 but for at most 1 element in 100 of a leaf within 2
+    lr (AdamW steps a gradient at rounding level by its sign: jamba's
+    512-element ``wdt`` leaves hold such elements), m and v rtol 1e-4 /
+    atol 1e-5 x the leaf's largest magnitude; the card's step launches
+    the SSD kernels (twice the forward, once the backward, a layer) and
+    no plain version."""
+    from repro_torch import bridge
+    from repro_torch.kernels import ssd_scan as kss
+    from repro_torch.optim import AdamWConfig, Schedule
+    from repro_torch.train import make_train_step, train_state_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    opt = AdamWConfig(schedule=Schedule(peak_lr=3e-3, warmup_steps=0,
+                                        decay_steps=10))
+    lr = float(opt.schedule(1))
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 80))
+                              .astype(np.int32))
+    pattern = cfg.block_pattern()
+    n_ssm = sum(pattern[i % len(pattern)].mixer == "ssm"
+                for i in range(cfg.n_layers))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = train_state_init(model, opt, torch.Generator().manual_seed(0),
+                                 "cpu")
+        state = bridge.train_state_from_numpy(
+            bridge.train_state_to_numpy(state), cfg, dev)
+        counts = (kss.ssd_scan.launches, kss.ssd_scan_bwd.launches,
+                  kss.ssd_scan_plain.calls, kss.ssd_scan_bwd_plain.calls)
+        state, m = make_train_step(model, opt, accum_steps=1)(
+            state, {"tokens": tokens.to(dev)})
+        delta = tuple(a - b_ for a, b_ in zip(
+            (kss.ssd_scan.launches, kss.ssd_scan_bwd.launches,
+             kss.ssd_scan_plain.calls, kss.ssd_scan_bwd_plain.calls),
+            counts))
+        if dev == "cuda":
+            assert delta == (2 * n_ssm, n_ssm, 0, 0)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    bridge.train_state_to_numpy(state))
+    (mc, sc), (mg, sg) = out["cpu"], out["cuda"]
+    for name in ("loss", "grad_norm"):
+        assert mg[name] == pytest.approx(mc[name], rel=1e-5)
+    for key, want in sc.items():
+        got = sg[key]
+        if key.startswith("params"):
+            bad = np.abs(got - want) > 1e-6 + 1e-4 * np.abs(want)
+            assert bad.sum() <= want.size // 100, key
             np.testing.assert_allclose(got[bad], want[bad], atol=2 * lr,
                                        rtol=0, err_msg=key)
         else:

@@ -470,17 +470,44 @@ def test_flash_attention_bwd_without_library_raises(monkeypatch):
 
 
 def test_ssd_scan_refuses_device_inputs_that_need_grad():
-    """Off the CPU, an input that requires grad is refused (the kernel
-    has no backward yet) before any dispatch; without grad the meta
-    device is refused as before; on the CPU the plain version stays
-    differentiable."""
+    """Off the CPU and the card, an input that requires grad is refused
+    (the training path, ``SsdScanFn``, dispatches as the forward does),
+    running no kernel and no plain version; without grad the meta device
+    is refused as before; on the CPU the plain version is differentiable
+    through the plain backward (one forward storing the states, one
+    backward a call)."""
     x, dt_a, b, c, state = _ssd_inputs("meta")
-    with pytest.raises(NotImplementedError, match="no backward"):
+    before = (kss.ssd_scan.launches, kss.ssd_scan_plain.calls,
+              kss.ssd_scan_bwd.launches, kss.ssd_scan_bwd_plain.calls)
+    with pytest.raises(ValueError, match="cuda"):
         kss.ssd_scan(x.requires_grad_(True), dt_a, b, c, 40, state)
     with torch.no_grad():
         with pytest.raises(ValueError, match="cuda"):
             kss.ssd_scan(x, dt_a, b, c, 40, state)
+    assert (kss.ssd_scan.launches, kss.ssd_scan_plain.calls,
+            kss.ssd_scan_bwd.launches, kss.ssd_scan_bwd_plain.calls) == before
     x, dt_a, b, c, state = _ssd_inputs()
     y, _ = kss.ssd_scan(x.requires_grad_(True), dt_a, b, c, 40, state)
     (gx,) = torch.autograd.grad(y.sum(), x)
     assert torch.isfinite(gx).all()
+    assert (kss.ssd_scan_plain.calls, kss.ssd_scan_bwd_plain.calls) == (
+        before[1] + 1, before[3] + 1)
+
+
+def test_ssd_scan_bwd_without_library_raises(monkeypatch):
+    """The backward kernel's path with no compiler to build its library
+    raises; it does not fall back to the plain backward, and counts no
+    launch and no plain call."""
+    monkeypatch.setattr(compat, "nvcc_path", lambda: None)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR / "absent")
+    x, dt_a, b, c, state = _ssd_inputs()
+    states = torch.zeros((1, 1, 2, 16, 8))
+    before = (kss.ssd_scan_bwd.launches, kss.ssd_scan_bwd_plain.calls)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kss._bwd_kernel(x, dt_a, b, c, states, torch.zeros_like(x), None,
+                        40)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("ssd_scan_bwd")
+    assert (kss.ssd_scan_bwd.launches,
+            kss.ssd_scan_bwd_plain.calls) == before

@@ -1,18 +1,23 @@
 """The port's training loss against the reference's, on the CPU:
 ``make_loss_fn``'s loss, metrics and every gradient leaf against
-``jax.value_and_grad`` of the reference's, on five reduced configs:
+``jax.value_and_grad`` of the reference's, on seven reduced configs:
 qwen2.5-3b (GQA, QKV bias, tied embeddings; a packed batch with a loss
 mask), gemma2-2b (local / global windows, both softcaps),
 kimi-k2-1t-a32b (MoE: the aux losses enter the loss), seamless-m4t-medium
-(frames through the non-causal encoder, cross-attention) and
-internvl2-2b (a patch prefix; the loss reads the text positions only).
+(frames through the non-causal encoder, cross-attention),
+internvl2-2b (a patch prefix; the loss reads the text positions only),
+mamba2-2.7b (the SSD blocks) and jamba-v0.1-52b (SSD beside attention
+and MoE).
 
 Both packages run the same config with the reference's weights
 (carried across by ``repro_torch.bridge``) on the same batch, made with
 numpy from a seed.  The port's attention backward is the CPU plain
 backward of ``flash_attention`` (the kernel's formulas), every block
 rematerialised as on the card (``remat="block"``); the reference
-differentiates its XLA ``attention()``.  Tolerances (fp32, summation
+differentiates its XLA ``attention()``; likewise the SSD scan's
+backward is the CPU plain ``ssd_scan_bwd_plain`` (the formulas of its
+kernel) where the reference differentiates its XLA ``ssd_chunked``.
+Tolerances (fp32, summation
 order only): loss and metrics rtol 1e-5; every gradient leaf rtol 1e-4
 with atol 1e-5 x the leaf's largest magnitude.
 """
@@ -41,7 +46,7 @@ from repro_torch.train import make_loss_fn  # noqa: E402
 
 B, S = 2, 24
 ARCHS = ("qwen2.5-3b", "gemma2-2b", "kimi-k2-1t-a32b", "seamless-m4t-medium",
-         "internvl2-2b")
+         "internvl2-2b", "mamba2-2.7b", "jamba-v0.1-52b")
 
 
 @pytest.fixture(scope="module", autouse=True)
