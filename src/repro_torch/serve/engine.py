@@ -160,8 +160,11 @@ def _put(t: torch.Tensor, slot: int, value) -> None:
 
 
 def _tree_to(tree: dict, device: torch.device) -> dict:
-    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    """``tree`` on ``device``, detached: serving takes no gradient, and a
+    trained parameter that requires grad would otherwise tie every cache
+    write into one growing autograd graph."""
+    return {k: _tree_to(v, device) if isinstance(v, dict)
+            else v.detach().to(device) for k, v in tree.items()}
 
 
 def _reset_cache(cache: dict) -> None:

@@ -14,6 +14,9 @@ position, logits) exactly as the reference's does:
   bits; its high word is 0 for any seed below 2^32);
 * :func:`fold_in`: ``threefry2x32(key, (0, data))``, ``data`` taken mod
   2^32 as ``jnp.uint32`` takes an int32;
+* :func:`split`: ``jax.random.split(key, n)`` of the partitionable
+  scheme: key ``i`` is the pair of output words for the counter (high,
+  low) of the 64-bit ``i``;
 * :func:`random_bits`: 32-bit draws of the partitionable scheme: the
   counter of element ``i`` of the flattened shape is the pair (high,
   low) of the 64-bit ``i``, and the draw is the xor of the two output
@@ -21,6 +24,10 @@ position, logits) exactly as the reference's does:
 * :func:`uniform`: the draw's top 23 bits as the mantissa of a float in
   [1, 2), minus 1, then ``f * (maxval - minval) + minval`` floored at
   ``minval``;
+* :func:`uniform_range`: elements ``[start, start + count)`` of the
+  flattened :func:`uniform` draw, whatever its shape (an element's bits
+  depend only on the key and its flat index), so that a large draw can
+  be made a range at a time with the bits of one draw;
 * :func:`gumbel`: ``-log(-log(uniform(tiny, 1)))``, ``jax.random``'s
   "low" mode;
 * :func:`categorical`: ``argmax(gumbel + logits)``, the first index on
@@ -86,29 +93,57 @@ def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return torch.stack([a, b], dim=-1)
 
 
+def split(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.split(key, n)``: key (2,) -> int64 (n, 2)."""
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    a, b = threefry2x32(key[0], key[1], idx >> 32, idx & MASK)
+    return torch.stack([a, b], dim=-1)
+
+
+def _counter_bits(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The 32-bit draws of the flat indices ``idx`` (int64) under each
+    key of ``key`` (*k, 2): int64 (*k, *idx.shape)."""
+    lead = key.shape[:-1] + (1,) * idx.dim()
+    a, b = threefry2x32(key[..., 0].reshape(lead), key[..., 1].reshape(lead),
+                        idx >> 32, idx & MASK)
+    return a ^ b
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32) for each key of ``key``
     (*k, 2): int64 (*k, *shape) holding the 32-bit draws."""
     shape = tuple(shape)
     idx = torch.arange(math.prod(shape), dtype=torch.int64,
                        device=key.device).reshape(shape)
-    lead = key.shape[:-1] + (1,) * len(shape)
-    a, b = threefry2x32(key[..., 0].reshape(lead), key[..., 1].reshape(lead),
-                        idx >> 32, idx & MASK)
-    return a ^ b
+    return _counter_bits(key, idx)
+
+
+def _bits_to_uniform(bits: torch.Tensor, device, minval: float,
+                     maxval: float) -> torch.Tensor:
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    # filled on the device: a tensor made from a host value would copy
+    # it across and synchronize the stream
+    lo = torch.full((), minval, dtype=torch.float32, device=device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=device)
+    return torch.maximum(lo, (f - 1.0) * (hi - lo) + lo)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32, per key of ``key`` (*k, 2):
     (*k, *shape) in [minval, maxval)."""
-    bits = random_bits(key, shape)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    # filled on the device: a tensor made from a host value would copy
-    # it across and synchronize the stream
-    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
-    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, (f - 1.0) * (hi - lo) + lo)
+    return _bits_to_uniform(random_bits(key, shape), key.device, minval,
+                            maxval)
+
+
+def uniform_range(key: torch.Tensor, start: int, count: int
+                  ) -> torch.Tensor:
+    """Elements ``[start, start + count)`` of the flattened ``uniform(key,
+    shape)`` in [0, 1), for any ``shape`` of at least ``start + count``
+    elements: (*k, count), the same bits as the whole draw's."""
+    idx = torch.arange(start, start + count, dtype=torch.int64,
+                       device=key.device)
+    return _bits_to_uniform(_counter_bits(key, idx), key.device, 0.0, 1.0)
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

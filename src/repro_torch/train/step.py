@@ -148,17 +148,12 @@ def _microbatch(batch: Dict[str, torch.Tensor], accum: int, i: int
     return out
 
 
-def make_train_step(model: Model, opt_cfg: AdamWConfig,
-                    accum_steps: int = 1,
-                    accum_dtype: str = "float32") -> Callable:
-    """``train_step(state, batch) -> (state, metrics)``, the state
-    updated in place.  metrics (0-d fp32 tensors, detached): those of
-    :func:`make_loss_fn` averaged over the microbatches, and
-    ``grad_norm`` of the averaged, unclipped gradients: ``global_norm``,
-    computed once and handed to the update's clip (the reference sums
-    the same fp32 leaf sums of squares twice, in two orders)."""
+def make_grad_fn(model: Model) -> Callable:
+    """``grad_fn(params, batch) -> (metrics, grads)``: the metrics of
+    :func:`make_loss_fn` (detached) and the gradient of every leaf of
+    ``bridge.flatten(params)``, keyed and ordered as that flat dict (a
+    leaf the loss does not reach gets zeros)."""
     loss_fn = make_loss_fn(model)
-    acc_dt = getattr(torch, accum_dtype)
 
     def grad_fn(params: dict, batch: Dict[str, torch.Tensor]):
         flat = flatten(params)
@@ -170,28 +165,52 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(flat.items(), grads)}
         return {k: v.detach() for k, v in metrics.items()}, grads
+    return grad_fn
+
+
+def accumulate_grads(grad_fn: Callable, params: dict,
+                     batch: Dict[str, torch.Tensor], accum_steps: int,
+                     accum_dtype: torch.dtype):
+    """(metrics, grads) of ``grad_fn`` averaged over ``accum_steps``
+    microbatches of ``batch`` (:func:`_microbatch`), the gradient sums
+    kept at ``accum_dtype``; at ``accum_steps`` 1 the gradients keep the
+    params' dtype."""
+    if accum_steps == 1:
+        return grad_fn(params, batch)
+    g_sum, m_sum = None, None
+    for i in range(accum_steps):
+        m, g = grad_fn(params, _microbatch(batch, accum_steps, i))
+        if g_sum is None:
+            g_sum = {k: torch.zeros(t.shape, dtype=accum_dtype,
+                                    device=t.device)
+                     for k, t in g.items()}
+            m_sum = {k: torch.zeros((), dtype=torch.float32,
+                                    device=t.device)
+                     for k, t in m.items()}
+        for k, t in g.items():
+            g_sum[k].add_(t.to(accum_dtype))
+        del g
+        m_sum = {k: m_sum[k] + m[k] for k in m_sum}
+    grads = {k: t.div_(accum_steps) for k, t in g_sum.items()}
+    return {k: t / accum_steps for k, t in m_sum.items()}, grads
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig,
+                    accum_steps: int = 1,
+                    accum_dtype: str = "float32") -> Callable:
+    """``train_step(state, batch) -> (state, metrics)``, the state
+    updated in place.  metrics (0-d fp32 tensors, detached): those of
+    :func:`make_loss_fn` averaged over the microbatches, and
+    ``grad_norm`` of the averaged, unclipped gradients: ``global_norm``,
+    computed once and handed to the update's clip (the reference sums
+    the same fp32 leaf sums of squares twice, in two orders)."""
+    grad_fn = make_grad_fn(model)
+    acc_dt = getattr(torch, accum_dtype)
 
     def train_step(state: dict, batch: Dict[str, torch.Tensor]):
         params = state["params"]
-        if accum_steps == 1:
-            metrics, grads = grad_fn(params, batch)
-        else:
-            g_sum, m_sum = None, None
-            for i in range(accum_steps):
-                m, g = grad_fn(params, _microbatch(batch, accum_steps, i))
-                if g_sum is None:
-                    g_sum = {k: torch.zeros(t.shape, dtype=acc_dt,
-                                            device=t.device)
-                             for k, t in g.items()}
-                    m_sum = {k: torch.zeros((), dtype=torch.float32,
-                                            device=t.device)
-                             for k, t in m.items()}
-                for k, t in g.items():
-                    g_sum[k].add_(t.to(acc_dt))
-                del g
-                m_sum = {k: m_sum[k] + m[k] for k in m_sum}
-            grads = {k: t.div_(accum_steps) for k, t in g_sum.items()}
-            metrics = {k: t / accum_steps for k, t in m_sum.items()}
+        metrics, grads = accumulate_grads(grad_fn, params, batch,
+                                          accum_steps, acc_dt)
         with torch.no_grad():
             gnorm = global_norm(grads)
         metrics["grad_norm"] = gnorm
@@ -200,4 +219,3 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         return state, metrics
 
     return train_step
-

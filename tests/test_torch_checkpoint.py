@@ -173,6 +173,32 @@ def test_train_loop_resume_equals_uninterrupted(tmp_path):
     _equal_bits(resumed, straight)
 
 
+@pytest.mark.parametrize("total,every,want", [
+    (4, 2, [2, 4, 4]), (5, 2, [2, 4, 5]), (3, 100, [3])])
+def test_train_loop_snapshot_steps(tmp_path, monkeypatch, total, every,
+                                   want):
+    """The loop's snapshots, as the reference's loop takes them: every
+    ``checkpoint_every`` steps, then the final step (again when the last
+    periodic snapshot was already it); LATEST names the final step."""
+    from repro_torch.checkpoint import Checkpointer
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(), n_layers=1)
+    model = build_model(cfg)
+    opt = AdamWConfig()
+    saves = []
+    save = Checkpointer.save
+    monkeypatch.setattr(Checkpointer, "save", lambda self, tree, step, *a,
+                        **k: (saves.append(step), save(self, tree, step, *a,
+                                                       **k))[1])
+    state = train_state_init(model, opt, torch.Generator().manual_seed(0),
+                             "cpu")
+    run_train_loop(make_train_step(model, opt), state, make_stream(cfg, 2, 8),
+                   TrainLoopConfig(total_steps=total, checkpoint_every=every,
+                                   checkpoint_dir=str(tmp_path),
+                                   straggler_deadline_factor=1e9))
+    assert saves == want
+    assert (tmp_path / "LATEST").read_text() == str(total)
+
+
 def test_watchdog_and_heartbeat(tmp_path, monkeypatch):
     """A step over 3x the rolling median is a straggler event (on a
     patched clock, so no sleep decides it); the heartbeat file holds

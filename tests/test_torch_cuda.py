@@ -1782,3 +1782,106 @@ def test_ssm_train_step_card_matches_cpu(cuda, arch):
                 got, want, rtol=1e-4,
                 atol=1e-5 * float(np.abs(want).max(initial=0.0)),
                 err_msg=key)
+
+
+# --------------------------------------------------------------------- #
+# data-parallel training: the compressed mean and the DP step
+# --------------------------------------------------------------------- #
+
+@pytest.fixture
+def dp_group(cuda, monkeypatch):
+    """One rank of a default group that reduces CPU tensors through gloo
+    and the card's through NCCL (a HashStore: no TCP store; bootstrap
+    over the loopback device)."""
+    import torch.distributed as dist
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def test_compressed_psum_tree_card_matches_cpu(dp_group):
+    """The leaf set of the CPU tests (1-D, 2-D, 3-D, all zero, an
+    outlier row, leaves at +-qmax) through NCCL on the card and gloo on
+    the CPU from the same bits and key: bit-identical, also in blocks
+    smaller than a row."""
+    import torch_dp_cases as cases
+    from repro_torch import bridge
+    from repro_torch.distributed import compression
+    from repro_torch.serve import prng
+    leaves = bridge.unflatten({k: torch.from_numpy(v) for k, v in
+                               cases._flat(cases.leaf_set(1)).items()})
+    for chunk in (compression.CHUNK, 64):
+        old, compression.CHUNK = compression.CHUNK, chunk
+        try:
+            out = {}
+            for dev in ("cpu", "cuda"):
+                key = prng.fold_in(prng.prng_key(3, dev),
+                                   torch.tensor(2, device=dev))
+                tree = bridge.unflatten({k: t.to(dev) for k, t in
+                                         bridge.flatten(leaves).items()})
+                out[dev] = bridge.flatten(compression.compressed_psum_tree(
+                    tree, key, None, 1))
+        finally:
+            compression.CHUNK = old
+        for k, want in out["cpu"].items():
+            got = out["cuda"][k]
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32)), (chunk, k)
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_local_dp_step_card_matches_cpu(dp_group, compress):
+    """One DP step at accum 2 of qwen2.5-3b reduced (fp32, TF32 off), the
+    card's through NCCL against the CPU's through gloo, from the same
+    state and batch: loss and grad_norm rtol 1e-5, every param within
+    rtol 1e-4 / atol 1e-6 but for at most 1 element in 100 of a leaf,
+    within 2 lr (a gradient at a rounding boundary steps by its sign, or
+    by a quantum of the compressed mean), the launches those of the
+    attention kernels and no plain version."""
+    from repro_torch import bridge
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.optim import AdamWConfig, Schedule
+    from repro_torch.train import make_local_dp_train_step, train_state_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen2.5-3b").reduced()
+    model = build_model(cfg)
+    opt = AdamWConfig(schedule=Schedule(peak_lr=3e-3, warmup_steps=0,
+                                        decay_steps=10))
+    lr = float(opt.schedule(1))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32))
+    state0 = bridge.train_state_to_numpy(train_state_init(
+        model, opt, torch.Generator().manual_seed(0), "cpu"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = bridge.train_state_from_numpy(state0, cfg, dev)
+        before = (kfa.flash_attention.launches,
+                  kfa.flash_attention_bwd.launches,
+                  kfa.flash_attention_plain.calls)
+        state, m = make_local_dp_train_step(
+            model, opt, accum_steps=2, compress=compress)(
+                state, {"tokens": tokens.to(dev)})
+        if dev == "cuda":
+            assert (kfa.flash_attention.launches - before[0],
+                    kfa.flash_attention_bwd.launches - before[1],
+                    kfa.flash_attention_plain.calls - before[2]) == (
+                        2 * 2 * cfg.n_layers, 2 * cfg.n_layers, 0)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    bridge.train_state_to_numpy(state))
+    (mc, sc), (mg, sg) = out["cpu"], out["cuda"]
+    for name in ("loss", "grad_norm"):
+        assert mg[name] == pytest.approx(mc[name], rel=1e-5)
+    assert int(sg["opt/step"]) == int(sc["opt/step"]) == 1
+    for key, want in sc.items():
+        if key.startswith("params"):
+            got = sg[key]
+            bad = np.abs(got - want) > 1e-6 + 1e-4 * np.abs(want)
+            if not key.endswith("/attn/bk"):
+                assert bad.sum() <= want.size // 100, key
+            np.testing.assert_allclose(got[bad], want[bad], atol=2 * lr,
+                                       rtol=0, err_msg=key)

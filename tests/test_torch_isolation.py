@@ -511,3 +511,28 @@ def test_ssd_scan_bwd_without_library_raises(monkeypatch):
         _build.load("ssd_scan_bwd")
     assert (kss.ssd_scan_bwd.launches,
             kss.ssd_scan_bwd_plain.calls) == before
+
+
+def test_data_parallel_modules_and_examples_are_checked():
+    """The data-parallel slice's modules and the examples are among the
+    files the import check reads."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/distributed/compression.py",
+            "src/repro_torch/train/local_dp.py",
+            "src/repro_torch/examples/__init__.py",
+            "src/repro_torch/examples/quickstart.py",
+            "src/repro_torch/examples/train_100m.py"} <= names
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("quickstart", []), ("train_100m", ["--steps", "1", "--ckpt", "unused"])])
+def test_examples_default_to_the_card(no_card, name, argv, tmp_path,
+                                      monkeypatch):
+    """Each example runs on the card unless ``--device cpu`` is given:
+    without one it refuses before it builds anything."""
+    import importlib
+    monkeypatch.chdir(tmp_path)
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(argv)
+    assert not any(tmp_path.iterdir())
