@@ -7,7 +7,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
 
 0. the card (``nvidia-smi`` name and power limit) and the kernel build
    (one ``nvcc`` per source, all at once; registers, spills and ptxas's
-   wgmma serialization notes printed);
+   wgmma serialization notes printed); then NVML
+   (``repro_torch.core.nvml``): the card's NVML device found by torch's
+   UUID, its name and UUID equal to torch's, and an energy window with
+   the card idle (no kernel has run yet) over 20 counter updates, whose
+   median interval is the counter's period;
 1. ``flash_decode`` (kernel) against ``flash_decode_plain`` on the card,
    ten cases: (a) the serving shape b=8, hq=hkv=16, d=128, S=1024, bf16,
    ragged pos 100..1000; (b) the same in fp32; (c) GQA 32/8 over a cache
@@ -154,13 +158,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    prefill_chunk 32, decode_block 16.  Every request must end ``ok``
    with 64 tokens and ``flash_decode`` must have launched once per layer
    per decode step; the kernel is then held against its plain version
-   on the engine's own pool (case g);
+   on the engine's own pool (case g).  The served run is an NVML energy
+   window (phase 2r reads it);
 2b. the same traffic through quantized serving, twice: fp4 weights
    (packed store) with fp4 KV, and fp8 weights with fp8 KV.
    ``flash_decode_quant`` must have launched once per layer per decode
    step and ``flash_decode`` never; measured weight and KV bytes are
    printed, and the kernel is held to its plain version on the engine's
-   quantized pool (case g);
+   quantized pool (case g); each served run an energy window, as in 2;
 2c. the block-scaled GEMM path of the Tab VII benchmark: the user entry
    points ``quantize_for_qmatmul`` + ``qmatmul`` (fp8) and
    ``pack_for_qmatmul`` + ``qmatmul_packed`` (fp4) at its sizes 512^3 ..
@@ -322,7 +327,39 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    of the affine chain), and ``train_100m`` (llama-100m, batch 4 x 256)
    for 40 steps, then a second run to 60 that resumes from the
    checkpoint at 40; every logged loss finite, each run's last below
-   its first;
+   its first.  Then the serving examples at their own sizes, from
+   weights made on the CPU: ``serve_demo`` (gptneox-1b reduced, five
+   weight formats, fused K=16 and per-step): the fused and per-step
+   streams identical for each format, ``quantized_bytes`` equal to the
+   CPU's and the rel-MSE within 1e-5 relative of it, ``flash_decode``
+   launched and its plain version never; ``long_context`` (mamba2 and
+   gemma2 reduced, then gemma2 with fp4 KV, decoded to positions 64,
+   256, 1024; fp32, TF32 off; each run, and a CPU run of each, in a
+   worker process of its own): the cache bytes and ``kv_cache_stats`` at
+   each position
+   equal to the CPU's, the greedy tokens equal up to position 64, every
+   logit finite, and exact launches (``ssd_scan`` n_layers in mamba2's
+   prefill, ``flash_attention`` n_layers in gemma2's, ``flash_decode``
+   or ``flash_decode_quant`` n_layers a decode step), no plain version;
+2r. power and energy (the paper's Tab VI, Fig 12, Tab VIII), read by
+   NVML beside ``core.energy.estimate`` for the detected part with the
+   same flops and HBM bytes and the measured device time a launch:
+   phase 0's idle window against the model's ``idle_watts``; sustained
+   loops of ``mma_products`` in TF32, fp16 and bf16 (batch x 4 x 128^3
+   with the batch doubled until a launch takes >= 0.5 ms) and of
+   ``qmatmul`` fp8 and ``qmatmul_packed`` fp6 e2m3, fp6 e3m2, fp4 at
+   2048^3; ``qmatmul`` fp8 at 512^3 .. 8192^3 (J/TFLOP); and the windows
+   of phases 2 / 2b beside ``serve_demo``'s estimate for gptneox-1b (W,
+   J a generated token).  A sustained window lasts until the counter
+   has moved 20 times (a window of a served run says so where it holds
+   fewer than 10 updates); each line gives
+   the window's updates, busy share (launches x the CUDA-event time a
+   launch over the window), SM and memory clocks, temperature and
+   clocks-event reasons.  Gates, correctness only: the counter rises in
+   every window, mean W in (0, 1.05 x the enforced limit], each looped
+   kernel's last output the bits of its first, and the first within
+   1c / 1d's tolerances of its plain version; an NVML error fails the
+   run;
 3. the dense path on the card and on the CPU in fp32 with TF32 off, full
    width, 2 layers, the same seeded weights: 2 requests x 32-token
    prompts x 16 new tokens, decode_block 7.  Greedy streams must be
@@ -409,6 +446,7 @@ is printed.  Without a CUDA device it exits with code 2 at once.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -471,6 +509,12 @@ COLD_BYTES = 120e6          # input sets cycled per timing: > the 50 MB L2
 # speculation (2m, 3h) included, stays well inside its time limit on a
 # slow host; 2m serves gptneox-1b and mamba2-2.7b at the same cut
 CUT_LAYERS = 8
+# phase 2r's windows: the counter updates a window runs for (the idle
+# window and the sustained loops), the longest it may wait for them, and
+# the served windows' count below which a line says so
+WINDOW_UPDATES = 20
+WINDOW_LIMIT_S = 30.0
+FEW_UPDATES = 10
 # the depth of phase 2n's restart check (a full-depth qwen2.5-3b train
 # state is 31 GB a snapshot; at 2 layers ~4.7 GB, the embedding's share)
 TRAIN_RESTART_LAYERS = 2
@@ -478,6 +522,59 @@ TRAIN_RESTART_LAYERS = 2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@dataclasses.dataclass
+class Meter:
+    """The card's NVML device, its energy counter's update period (an
+    energy window polls every tenth of it) and phase 0's idle window."""
+    device: object
+    period_s: float
+    idle: object
+
+    def window(self):
+        from repro_torch.core import nvml
+        return nvml.EnergyWindow(self.device,
+                                 poll_s=min(max(self.period_s / 10, 2e-4),
+                                            5e-3))
+
+
+def phase0_nvml() -> Meter:
+    """NVML present, the card's NVML device found by torch's UUID with
+    torch's name and UUID (``nvml.Device`` raises otherwise), then an
+    energy window with the card idle (no kernel has run) that lasts until
+    the counter has moved ``WINDOW_UPDATES`` times: the median time
+    between its updates is the counter's period."""
+    from repro_torch.core import nvml
+    ok, why = nvml.available()
+    if not ok:
+        raise nvml.NvmlError(why)
+    dev = nvml.Device()
+    before = dev.readings()
+    with nvml.EnergyWindow(dev, poll_s=1e-3) as idle:
+        t_end = time.perf_counter() + WINDOW_LIMIT_S
+        while (len(idle.points) <= WINDOW_UPDATES
+               and time.perf_counter() < t_end):
+            time.sleep(0.01)
+    check_window("idle", idle)
+    meter = Meter(dev, idle.period_s, idle)
+    log(f"[nvml] {why}; cuda:{dev.index} {dev.torch_name} {dev.uuid} is "
+        f"NVML's {dev.name!r} {dev.nvml_uuid}; before the idle window "
+        f"{before.describe()}; the energy counter updates every "
+        f"{idle.period_s * 1e3:.2f} ms (median of the window's "
+        f"{idle.updates})")
+    return meter
+
+
+def check_window(label: str, w) -> None:
+    """Phase 2r's gates on an energy window: the counter rose, and the
+    mean power lies in (0, 1.05 x the enforced limit]."""
+    if not (w.counter_joules > 0 and w.joules > 0):
+        raise AssertionError(f"{label}: the energy counter did not rise "
+                             f"({w.counter_joules} J)")
+    if not 0 < w.watts <= 1.05 * w.end.limit_w:
+        raise AssertionError(f"{label}: mean {w.watts:.1f} W outside (0, "
+                             f"1.05 x {w.end.limit_w:.1f} W]")
 
 
 def ring_slot_pos(pos: int, S: int) -> np.ndarray:
@@ -1677,14 +1774,16 @@ def phase1g_modal_shapes(hbm, peak_bf16):
 
 
 def serve(eng, prompts, counter, expected, label: str, also=(),
-          modal=None) -> dict:
+          modal=None, meter=None) -> dict:
     """Warm up, then serve ``prompts`` x 64 new tokens with the launch
     count of ``counter`` (a kernel wrapper) set to 0 just before and read
     just after.  Checks every request and that the count equals
     ``expected(decode steps)``, and the same for each (wrapper, expected)
     pair of ``also``; prints and returns the end-to-end metrics (the
     launches of ``also`` under ``also_launches``).  ``modal``: one dict
-    of ``submit`` keywords a prompt (``frames=`` / ``patches=``)."""
+    of ``submit`` keywords a prompt (``frames=`` / ``patches=``).  With a
+    :class:`Meter`, the served run is an energy window (under
+    ``energy``, with the tokens it generated under ``tokens``)."""
     modal = modal or [{}] * len(prompts)
     eng.submit(list(range(1, 41)), max_new_tokens=4, **modal[0])  # warm-up
     eng.run()
@@ -1697,7 +1796,8 @@ def serve(eng, prompts, counter, expected, label: str, also=(),
         other.launches = 0
     counter.launches = 0
     t_run = time.monotonic()
-    results = eng.run()
+    with meter.window() if meter else contextlib.nullcontext() as win:
+        results = eng.run()
     launches, steps = counter.launches, eng.decode_steps
     also_launches = {other.__name__: other.launches for other, _ in also}
     torch.cuda.synchronize()
@@ -1722,7 +1822,8 @@ def serve(eng, prompts, counter, expected, label: str, also=(),
     t_done = max(r.finish_t for r in results)
     decode_s = t_done - t_admitted
     out = {"launches": launches, "steps": steps,
-           "also_launches": also_launches,
+           "also_launches": also_launches, "energy": win,
+           "tokens": sum(len(r.tokens) for r in results),
            "step_ms": 1e3 * decode_s / steps,
            "tok_s": sum(len(r.tokens) - 1 for r in results) / decode_s,
            "prefill_s": t_admitted - t_run,
@@ -1737,6 +1838,12 @@ def serve(eng, prompts, counter, expected, label: str, also=(),
         f"decode {out['tok_s']:.1f} tok/s, {out['step_ms']:.2f} ms per "
         f"decode step, mean TTFT {out['ttft_ms']:.1f} ms, peak memory "
         f"{out['peak_gib']:.2f} GiB")
+    if win is not None:
+        check_window(label, win)
+        log(f"[{label}] energy window: {win.updates} counter updates over "
+            f"{win.seconds:.3f} s of the run's {win.wall_s:.3f} s, "
+            f"{win.joules:.3f} J, {win.watts:.1f} W; at its end "
+            f"{win.end.describe()}")
 
     # where a decode step's time goes: one more 16-step block, profiled
     eng.reset()
@@ -1758,7 +1865,7 @@ def serve(eng, prompts, counter, expected, label: str, also=(),
     return out
 
 
-def phase2_engine(cfg, prompts):
+def phase2_engine(cfg, prompts, meter):
     from repro_torch.kernels.flash_decode import (
         flash_decode, flash_decode_plain)
     from repro_torch.models.model import build_model
@@ -1772,7 +1879,7 @@ def phase2_engine(cfg, prompts):
     log(f"[engine] {cfg.name}: {qstats['quantized_bytes'] / 2**30:.3f} GiB "
         f"params, {eng.kv_stats['kv_bytes'] / 2**30:.3f} GiB KV pool")
     out = serve(eng, prompts, flash_decode,
-                lambda steps: cfg.n_layers * steps, "engine")
+                lambda steps: cfg.n_layers * steps, "engine", meter=meter)
 
     # case (g): the kernel on the engine's own pool, layer 0
     kv = eng.cache["pos0"]["kv"]
@@ -1788,7 +1895,7 @@ def phase2_engine(cfg, prompts):
     return out
 
 
-def phase2b_quant_engine(cfg, prompts, weight_format, kv_format):
+def phase2b_quant_engine(cfg, prompts, weight_format, kv_format, meter):
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_decode_quant import (
         flash_decode_quant, flash_decode_quant_plain)
@@ -1811,7 +1918,7 @@ def phase2b_quant_engine(cfg, prompts, weight_format, kv_format):
     log(f"[{label}] kv_stats {json.dumps(ks)}")
     flash_decode.launches = 0
     out = serve(eng, prompts, flash_decode_quant,
-                lambda steps: cfg.n_layers * steps, label)
+                lambda steps: cfg.n_layers * steps, label, meter=meter)
     if flash_decode.launches:
         raise AssertionError(f"{label}: the dense flash_decode launched "
                              f"{flash_decode.launches} times")
@@ -4922,6 +5029,296 @@ def phase2q_examples():
             "train_100m": [[h["loss"] for h in r] for r in runs]}
 
 
+def _example_counters() -> dict:
+    """{kernel: (wrapper, plain version)} of the kernels the serving
+    examples reach."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_decode_quant as fdq
+    from repro_torch.kernels import ssd_scan as kss
+    return {"flash_attention": (kfa.flash_attention,
+                                kfa.flash_attention_plain),
+            "flash_decode": (fd.flash_decode, fd.flash_decode_plain),
+            "flash_decode_quant": (fdq.flash_decode_quant,
+                                   fdq.flash_decode_quant_plain),
+            "ssd_scan": (kss.ssd_scan, kss.ssd_scan_plain)}
+
+
+def _launches(counters: dict, label: str) -> dict:
+    """The launches counted since the counters were set to 0; raises if
+    a plain version ran."""
+    plain = {k: p.calls for k, (_, p) in counters.items() if p.calls}
+    if plain:
+        raise AssertionError(f"2q {label}: plain versions ran: {plain}")
+    return {k: kern.launches for k, (kern, _) in counters.items()
+            if kern.launches}
+
+
+def _long_context_worker(arch: str, kv_format: str, device: str):
+    """One ``long_context.run`` in a worker process of 2q, so that the
+    card's three runs and their CPU references go side by side, each on
+    a host core of its own (fp32, TF32 off): (the run, the kernels'
+    launches in it (card) or None (CPU), its seconds)."""
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.examples import long_context
+    counters = _example_counters()
+    for kern, plain in counters.values():
+        kern.launches, plain.calls = 0, 0
+    t0 = time.perf_counter()
+    run = long_context.run(arch, kv_format=kv_format, device=device,
+                           log=lambda _: None)
+    launches = (_launches(counters, f"long_context {run['label']}")
+                if device == "cuda" else None)
+    return run, launches, time.perf_counter() - t0
+
+
+def phase2q_serving_examples():
+    """``serve_demo`` and ``long_context`` on the card at their own sizes
+    (see the module docstring, 2q), each against the CPU; the card's and
+    the CPU's ``long_context`` runs go in worker processes beside
+    ``serve_demo``.  Returns ``serve_demo``'s rows."""
+    import multiprocessing
+    from repro_torch.configs import get_config
+    from repro_torch.examples import long_context, serve_demo
+    from repro_torch.serve import quantize_params
+    counters = _example_counters()
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(
+            2 * len(long_context.RUNS)) as pool:
+        jobs = {dev: [pool.apply_async(_long_context_worker,
+                                       (arch, fmt, dev))
+                      for arch, fmt in long_context.RUNS]
+                for dev in ("cuda", "cpu")}
+        for kern, plain in counters.values():
+            kern.launches, plain.calls = 0, 0
+        rows = serve_demo.run("cuda", log=lambda m: log(f"[serve_demo] {m}"))
+        launches = _launches(counters, "serve_demo")
+        base = serve_demo.init_params("cpu")
+        for row in rows:
+            fmt = row["format"]
+            _, q = quantize_params(base, fmt)
+            if row["fused"] != row["per_step"]:
+                raise AssertionError(f"2q serve_demo {fmt}: fused and "
+                                     f"per-step streams differ")
+            if row["quantized_bytes"] != q["quantized_bytes"] or abs(
+                    row["mse"] - q["mse"]) > 1e-5 * abs(q["mse"]):
+                raise AssertionError(
+                    f"2q serve_demo {fmt}: bytes {row['quantized_bytes']} "
+                    f"mse {row['mse']!r} on the card, {q['quantized_bytes']} "
+                    f"{q['mse']!r} on the CPU")
+        if set(launches) != {"flash_decode"}:
+            raise AssertionError(f"2q serve_demo launched {launches}")
+        log(f"[examples 2q] serve_demo: fused and per-step streams "
+            f"identical for {', '.join(serve_demo.FORMATS)}; bytes equal "
+            f"and rel-MSE within 1e-5 of the CPU's; flash_decode launches "
+            f"{launches['flash_decode']} ({time.perf_counter() - t0:.1f} s)")
+        card = [j.get(timeout=600) for j in jobs["cuda"]]
+        cpu = [j.get(timeout=600) for j in jobs["cpu"]]
+    n64 = 64 - long_context.PROMPT_LEN
+    for (arch, fmt), (run, got, t_run), (ref, _, _) in zip(
+            long_context.RUNS, card, cpu):
+        n_layers = get_config(arch).reduced().n_layers
+        want = ({"ssd_scan": n_layers} if arch.startswith("mamba2")
+                else {"flash_attention": n_layers,
+                      "flash_decode_quant" if fmt else "flash_decode":
+                      n_layers * len(run["tokens"])})
+        if got != want or not all(run["finite"]):
+            raise AssertionError(f"2q long_context {run['label']}: "
+                                 f"launches {got}, expected {want}; "
+                                 f"finite {run['finite']}")
+        if run["cache_bytes"] != ref["cache_bytes"] or run["kv"] != ref["kv"]:
+            raise AssertionError(f"2q long_context {run['label']}: cache "
+                                 f"bytes {run['cache_bytes']} / "
+                                 f"kv_cache_stats differ from the CPU's "
+                                 f"{ref['cache_bytes']}")
+        if run["tokens"][:n64] != ref["tokens"][:n64]:
+            raise AssertionError(f"2q long_context {run['label']}: tokens "
+                                 f"to position 64 {run['tokens'][:n64]} vs "
+                                 f"the CPU's {ref['tokens'][:n64]}")
+        same = next((i for i, (a, b) in enumerate(zip(run["tokens"],
+                                                      ref["tokens"]))
+                     if a != b), None)
+        log(f"[examples 2q] long_context {run['label']}: cache "
+            f"{run['cache_bytes'][0]} B at positions "
+            f"{list(long_context.POSITIONS)} and kv_cache_stats as the "
+            f"CPU's; tokens equal to the CPU's "
+            + (f"throughout ({len(run['tokens'])})" if same is None else
+               f"to position {long_context.PROMPT_LEN + same}")
+            + f"; launches {got}; {t_run:.1f} s on the card")
+    log(f"[examples 2q] serve_demo and long_context (the card's and the "
+        f"CPU's runs in 6 workers): {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def _sustain(meter, fn, args, ms: float):
+    """``fn(*args)`` launched back to back inside an energy window until
+    the counter has moved ``WINDOW_UPDATES`` times, in chunks of ~20 ms
+    of launches with at most two in flight; the card's readings are
+    taken while the last chunk runs.  Returns (window, launches, the
+    last output, readings under load)."""
+    chunk = max(1, math.ceil(20.0 / ms))
+    n, prev = 0, None
+    torch.cuda.synchronize()
+    with meter.window() as w:
+        t_end = time.perf_counter() + WINDOW_LIMIT_S
+        while (len(w.points) <= WINDOW_UPDATES
+               and time.perf_counter() < t_end):
+            for _ in range(chunk):
+                out = fn(*args)
+            ev = torch.cuda.Event()
+            ev.record()
+            if prev is not None:
+                prev.synchronize()
+            prev = ev
+            n += chunk
+        load = meter.device.readings()
+        torch.cuda.synchronize()
+    return w, n, out, load
+
+
+def _power_row(label, model, meter, fn, args, ms, flops, moved, keys,
+               first) -> dict:
+    """One sustained window of ``fn(*args)`` (``ms`` a launch by CUDA
+    events), gated and printed beside ``energy.estimate`` of ``model``
+    for each dtype key of ``keys`` (flops and HBM bytes a launch, the
+    measured seconds a launch)."""
+    from repro_torch.core import energy
+    w, n, last, load = _sustain(meter, fn, args, ms)
+    check_window(label, w)
+    if not torch.equal(last.view(torch.uint8), first.view(torch.uint8)):
+        raise AssertionError(f"{label}: the last launch's output is not the "
+                             f"first's bits")
+    busy = n * ms / (w.wall_s * 1e3)
+    j_launch = w.watts * w.wall_s / n
+    ests = {key: energy.estimate(model, flops=flops, dtype=key,
+                                 bytes_by_level={"hbm": moved},
+                                 seconds=ms / 1e3) for key in keys}
+    log(f"[power 2r] {label}: {n} launches of {ms:.4f} ms in {w.wall_s:.3f} "
+        f"s (busy share {busy:.3f}, {flops / ms / 1e9:.1f} TFLOP/s a "
+        f"launch); {w.updates} counter updates over {w.seconds:.3f} s: "
+        f"{w.watts:.1f} W, {j_launch * 1e3:.4f} mJ a launch, "
+        f"{j_launch / (flops / 1e12):.3f} J/TFLOP; under load "
+        f"{load.describe()}")
+    for key, e in ests.items():
+        log(f"[power 2r]   model {model.name} dtype {key}: "
+            f"{e.total_watts:.1f} W, {e.total_watts * e.seconds * 1e3:.4f} "
+            f"mJ a launch ({e.joules * 1e3:.4f} mJ dynamic); measured / "
+            f"model W {w.watts / e.total_watts:.3f}")
+    return {"label": label, "launches": n, "ms": ms, "busy": busy,
+            "updates": w.updates, "seconds": w.seconds, "wall_s": w.wall_s,
+            "watts": w.watts, "j_launch": j_launch,
+            "j_tflop": j_launch / (flops / 1e12), "sm_mhz": load.sm_mhz,
+            "mem_mhz": load.mem_mhz, "temp_c": load.temp_c,
+            "reasons": load.reason_names,
+            "model_w": {k: e.total_watts for k, e in ests.items()}}
+
+
+def phase2r_power(model, meter, served, demo_rows) -> list:
+    """Power and energy on the card beside the energy model (see the
+    module docstring, 2r); ``served``: {weight format: phase 2 / 2b's
+    output}, ``demo_rows``: 2q's ``serve_demo`` rows."""
+    from repro_torch.core import energy
+    from repro_torch.kernels import probe_mma as pm
+    from repro_torch.kernels.qmatmul import (
+        pack_for_qmatmul, qmatmul, qmatmul_packed, qmatmul_packed_plain,
+        qmatmul_plain, quantize_for_qmatmul)
+    rows = []
+    w = meter.idle
+    idle = energy.estimate(model, flops=0.0, dtype="bfloat16",
+                           seconds=w.seconds)
+    log(f"[power 2r] idle (phase 0, before any kernel ran): {w.updates} "
+        f"counter updates over {w.seconds:.3f} "
+        f"s: {w.watts:.1f} W against the model's idle_watts "
+        f"{idle.total_watts:.1f} W of {model.name} (measured / model "
+        f"{w.watts / idle.total_watts:.3f}); at its end {w.end.describe()}")
+    rows.append({"label": "idle", "watts": w.watts, "updates": w.updates,
+                 "model_w": {"idle": idle.total_watts}})
+
+    # Tab VI: mma_products at each input dtype, a launch >= 0.5 ms
+    for dt, key, kind in ((torch.float32, "tf32", "tf32"),
+                          (torch.float16, "float16", "fp32"),
+                          (torch.bfloat16, "bfloat16", "fp32")):
+        g = torch.Generator(device="cuda").manual_seed(11)
+        batch = 1024
+        while True:
+            a = torch.randn((batch, 4, 128, 128), generator=g,
+                            device="cuda").to(dt)
+            b = torch.randn((batch, 4, 128, 128), generator=g,
+                            device="cuda").to(dt)
+            ms = time_ms(pm.mma_products, [(a, b)], reps=5)
+            if ms >= 0.5 or 2 * batch > pm.MAX_BATCH:
+                break
+            batch *= 2
+        first = pm.mma_products(a, b)
+        torch.cuda.synchronize()
+        _check_mma(f"2r {key} mma_products batch {batch} ilp 4 128^3",
+                   first, pm.mma_probe_plain(a, b, torch.float32), 128, kind)
+        rows.append(_power_row(
+            f"Tab VI mma_products {key} batch {batch} ilp 4 128^3", model,
+            meter, pm.mma_products, (a, b), ms, 2 * 128 ** 3 * batch * 4,
+            nbytes(a, b) + batch * 4 * 128 * 128 * 4, (key,), first))
+        del a, b, first
+
+    # Tab VI: the block-scaled GEMM in each format at 2048^3; Fig 12:
+    # fp8 from 512^3 to 8192^3
+    cases = [("float8_e4m3fn", 2048), ("float6_e2m3fn", 2048),
+             ("float6_e3m2fn", 2048), ("float4_e2m1fn", 2048),
+             ("float8_e4m3fn", 512), ("float8_e4m3fn", 1024),
+             ("float8_e4m3fn", 4096), ("float8_e4m3fn", 8192)]
+    for fmt, size in cases:
+        x, wt = _qmm_case(size, size, size, size)
+        if fmt == "float8_e4m3fn":
+            qw, sc = quantize_for_qmatmul(wt, fmt)
+            kern, plain, name = qmatmul, qmatmul_plain, "qmatmul"
+        else:
+            qw, sc = pack_for_qmatmul(wt, fmt)
+            name = "qmatmul_packed"
+
+            def kern(x, pw, sc, fmt=fmt):
+                return qmatmul_packed(x, pw, sc, fmt)
+
+            def plain(x, pw, sc, fmt=fmt):
+                return qmatmul_packed_plain(x, pw, sc, fmt)
+        del wt
+        args = (x, qw, sc)
+        first = kern(*args)
+        torch.cuda.synchronize()
+        check_qmm(f"2r {name} {fmt} {size}^3", first, plain(*args), size)
+        ms = time_ms(kern, [args], reps=5)
+        tab = ("Fig 12" if size != 2048 else "Tab VI / Fig 12"
+               if fmt == "float8_e4m3fn" else "Tab VI")
+        rows.append(_power_row(
+            f"{tab} {name} {fmt} {size}^3", model, meter, kern, args, ms,
+            2 * size ** 3, nbytes(x, qw, sc) + size * size * 2,
+            ("bfloat16", fmt), first))
+        del x, qw, sc, args, first
+
+    # Tab VIII: phases 2 / 2b's served runs beside serve_demo's estimate
+    demo = {r["format"]: r for r in demo_rows}
+    for fmt, out in served.items():
+        w, est = out["energy"], demo[fmt]["estimate"]
+        j_token = w.watts * w.wall_s / out["tokens"]
+        model_j = est.total_watts * est.seconds
+        few = (f" (FEWER THAN {FEW_UPDATES} COUNTER UPDATES)"
+               if w.updates < FEW_UPDATES else "")
+        log(f"[power 2r] Tab VIII gptneox-1b {fmt} weights: {out['tokens']} "
+            f"tokens in {w.wall_s:.3f} s; {w.updates} counter updates{few} "
+            f"over {w.seconds:.3f} s: {w.watts:.1f} W, {j_token:.4f} J a "
+            f"generated token; serve_demo's model for gptneox-1b at full "
+            f"width on {model.name}: {est.total_watts:.1f} W, "
+            f"{model_j * 1e3:.4f} mJ a token (measured / model W "
+            f"{w.watts / est.total_watts:.3f}, J {j_token / model_j:.3f}); "
+            f"at its end {w.end.describe()}")
+        rows.append({"label": f"Tab VIII {fmt}", "watts": w.watts,
+                     "updates": w.updates, "j_token": j_token,
+                     "model_w": {fmt: est.total_watts},
+                     "model_j_token": model_j})
+    log(f"[power 2r] summary {json.dumps(rows)}")
+    return rows
+
+
 def _dp_leaves(rng) -> dict:
     """Phase 3k's gradient leaves: 1-D, 2-D, 3-D (rows of 3200), all
     zero, and one outlier row."""
@@ -5075,11 +5472,14 @@ def main() -> int:
             log(f"[build]   {src}: {count} x {line}")
 
     t_phase = [time.perf_counter()]
+    meter = phase0_nvml()
 
     def stamp(phases: str) -> None:
         now = time.perf_counter()
         log(f"[time] phases {phases}: {now - t_phase[0]:.1f} s")
         t_phase[0] = now
+
+    stamp("0 NVML")
 
     # ---- 1: kernels vs plain on the card ----------------------------- #
     fd_entries = phase1_flash_decode(hbm, peak_bf16)
@@ -5098,11 +5498,11 @@ def main() -> int:
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, 256).tolist()
                for _ in range(8)]
-    dense = phase2_engine(cfg, prompts)
+    dense = phase2_engine(cfg, prompts, meter)
     for e in fd_entries:
         e["launches"] = dense["launches"]
     torch.cuda.empty_cache()
-    quant = {fmt: phase2b_quant_engine(cfg, prompts, fmt, fmt)
+    quant = {fmt: phase2b_quant_engine(cfg, prompts, fmt, fmt, meter)
              for fmt in ("float4_e2m1fn", "float8_e4m3fn")}
     for e in fdq_entries:
         e["launches"] = quant[e.pop("fmt")]["launches"]
@@ -5141,6 +5541,10 @@ def main() -> int:
     stamp("2o")
     phase2q_examples()
     stamp("2q")
+    demo_rows = phase2q_serving_examples()
+    stamp("2q serve_demo, long_context")
+    phase2r_power(model, meter, {"bfloat16": dense, **quant}, demo_rows)
+    stamp("2r")
     modal_paths = {
         "2k seamless dense serving": seamless["dense"]["launches"],
         "2k seamless float8_e4m3fn serving": seamless["float8_e4m3fn"][

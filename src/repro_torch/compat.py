@@ -13,6 +13,10 @@ container (every e2m3 / e3m2 / e2m1 value is exact in e4m3), rounded by
 ``repro_torch.lowbits.quantize_values``, with a bit-packed layout for
 storage.  It is the reference's fallback ladder with the ``ml_dtypes``
 host rounding replaced by the codec's arithmetic.
+
+:func:`divide_` divides by a count as XLA compiles the reference's
+``x / n`` and ``pmean`` under ``jit``: a product with the fp32
+reciprocal.
 """
 
 from __future__ import annotations
@@ -44,6 +48,24 @@ def resolve_device(device: Union[None, str, torch.device] = None
             f"(torch {torch.__version__}); pass device='cpu' explicitly "
             f"to run the plain versions on the host")
     return dev
+
+
+def reciprocal(n: int, device) -> torch.Tensor:
+    """``1 / n`` rounded to fp32 (0-d, on ``device``): the factor XLA
+    multiplies by where the reference divides by the constant ``n``."""
+    return torch.reciprocal(torch.full((), float(n), dtype=torch.float32,
+                                       device=device))
+
+
+def divide_(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t / n`` in place, as XLA compiles it under ``jit``: ``t``
+    widened to fp32, times :func:`reciprocal` ``(n)``, rounded back to
+    ``t``'s dtype (a bf16 ``t`` too: XLA widens it before the product).
+    Returns ``t``."""
+    r = reciprocal(n, t.device)
+    if t.dtype == torch.float32:
+        return t.mul_(r)
+    return t.copy_(t.to(torch.float32).mul_(r))
 
 
 @functools.lru_cache(maxsize=None)

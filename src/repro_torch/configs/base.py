@@ -220,6 +220,18 @@ class ArchConfig:
         n += self.d_model                      # final norm
         return n
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k + shared experts)."""
+        if not self.moe_num_experts:
+            return self.param_count()
+        mult = 3 if self.mlp_variant in ("swiglu", "geglu") else 2
+        expert = mult * self.d_model * self.expert_d_ff
+        inactive_per_moe_block = (
+            (self.moe_num_experts - self.moe_top_k) * expert)
+        n_moe_blocks = sum(1 for b in self.block_pattern()
+                           if b.ffn == "moe") * self.n_periods
+        return self.param_count() - inactive_per_moe_block * n_moe_blocks
+
     # ------------------------------------------------------------------ #
     def reduced(self) -> "ArchConfig":
         """Same-family tiny config for CPU tests."""

@@ -19,7 +19,7 @@ key give the same bits:
 
 XLA folds a division by a constant into a product with the constant's
 fp32 reciprocal, so steps 1 and 4 divide by ``qmax`` and ``world`` that
-way (:func:`_reciprocal`); ``g / scale`` divides.
+way (``compat.reciprocal``); ``g / scale`` divides.
 
 :func:`compressed_psum_tree` gives each leaf the key of its place in
 ``bridge.flatten``'s order (sorted keys at each level, as
@@ -52,18 +52,12 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.bridge import flatten, unflatten
+from repro_torch.compat import reciprocal
 from repro_torch.serve import prng
 
 CHUNK = 1 << 26          # elements quantized (and drawn) at a time
 SCALE_FLOOR = 1e-30
 LANE = 1 << 16
-
-
-def _reciprocal(n: int, device) -> torch.Tensor:
-    """``1 / n`` rounded to fp32 (0-d, on ``device``): the factor XLA
-    multiplies by where the reference divides by the constant ``n``."""
-    return torch.reciprocal(torch.full((), float(n), dtype=torch.float32,
-                                       device=device))
 
 
 def stochastic_round(x: torch.Tensor, key: torch.Tensor,
@@ -84,7 +78,7 @@ def quantize(g: torch.Tensor, key: torch.Tensor, qmax: int
     """(int8 payload, fp32 scale) with one scale for the tensor;
     stochastic rounding keeps E[q * scale] = g."""
     scale = (torch.amax(torch.abs(g)).to(torch.float32)
-             * _reciprocal(qmax, g.device))
+             * reciprocal(qmax, g.device))
     scale = torch.clamp(scale, min=SCALE_FLOOR)
     q = stochastic_round(g.to(torch.float32) / scale, key)
     return torch.clamp(q, -qmax, qmax).to(torch.int8), scale
@@ -145,7 +139,7 @@ def compressed_psum(g: torch.Tensor, key: torch.Tensor,
     # max |g| a row, without an |g|-sized temporary
     scale = torch.maximum(torch.amax(g2, dim=1, keepdim=True),
                           torch.neg(torch.amin(g2, dim=1, keepdim=True)))
-    scale = torch.clamp(scale * _reciprocal(qmax, g.device),
+    scale = torch.clamp(scale * reciprocal(qmax, g.device),
                         min=SCALE_FLOOR)
     dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
     rows, row_len = g2.shape
@@ -160,7 +154,7 @@ def compressed_psum(g: torch.Tensor, key: torch.Tensor,
     dist.all_reduce(word, op=dist.ReduceOp.SUM, group=group)
     q_sum = _unpack(word, g.numel()).reshape(rows, row_len)
     out = q_sum.to(torch.float32).mul_(scale).mul_(
-        _reciprocal(world, g.device))
+        reciprocal(world, g.device))
     return out.reshape(g.shape).to(g.dtype)
 
 

@@ -34,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.bridge import flatten, unflatten
+from repro_torch.compat import divide_
 from repro_torch.distributed.compression import compressed_psum_tree
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig, adamw_update
@@ -65,9 +66,11 @@ def reduce_gradients(grads: Dict[str, torch.Tensor],
     """The step's one reduction of the flat fp32 gradients ``grads``
     (``bridge.flatten``'s keys and order) over ``group``: with ``key``
     None, each leaf's mean in place (a sum over the ranks, then ``/
-    world``; the leaves under ``BUCKET`` elements summed together, one
-    all-reduce a bucket); with a key, :func:`compressed_psum_tree` under
-    it.  Returns the flat reduced gradients in the same order."""
+    world`` as ``jax.lax.pmean`` divides under ``jit``,
+    :func:`~repro_torch.compat.divide_`; the leaves under ``BUCKET``
+    elements summed together, one all-reduce a bucket); with a key,
+    :func:`compressed_psum_tree` under it.  Returns the flat reduced
+    gradients in the same order."""
     with torch.no_grad():
         if key is not None:
             return flatten(compressed_psum_tree(unflatten(grads), key,
@@ -76,12 +79,25 @@ def reduce_gradients(grads: Dict[str, torch.Tensor],
             flat = (bucket[0] if len(bucket) == 1 else
                     torch.cat([g.reshape(-1) for g in bucket]))
             dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-            flat.div_(world)
+            divide_(flat, world)
             if len(bucket) > 1:
                 for g, part in zip(bucket, flat.split(
                         [g.numel() for g in bucket])):
                     g.copy_(part.view_as(g))
         return grads
+
+
+def reduce_metrics(metrics: Dict[str, torch.Tensor],
+                   group: Optional[dist.ProcessGroup], world: int
+                   ) -> Dict[str, torch.Tensor]:
+    """The 0-d fp32 ``metrics`` averaged over ``group``: one all-reduce
+    of their stack, then ``/ world`` as ``jax.lax.pmean`` divides under
+    ``jit``."""
+    names = sorted(metrics)
+    stacked = torch.stack([metrics[k] for k in names])
+    dist.all_reduce(stacked, op=dist.ReduceOp.SUM, group=group)
+    divide_(stacked, world)
+    return {k: stacked[i] for i, k in enumerate(names)}
 
 
 def _buckets(leaves):
@@ -123,11 +139,7 @@ def make_local_dp_train_step(model: Model, opt_cfg: AdamWConfig,
                 key = prng.fold_in(prng.prng_key(seed, step.device), step)
             # THE deferred reduction: exactly once a step
             grads = reduce_gradients(grads, group, world, key)
-            names = sorted(metrics)
-            stacked = torch.stack([metrics[k] for k in names])
-            dist.all_reduce(stacked, op=dist.ReduceOp.SUM, group=group)
-            stacked = stacked / world
-            metrics = {k: stacked[i] for i, k in enumerate(names)}
+            metrics = reduce_metrics(metrics, group, world)
             sums = leaf_sums(grads)
             gnorm = global_norm(grads, sums)
             metrics["grad_norm"] = torch.sqrt(functools.reduce(

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.bridge import flatten, unflatten
+from repro_torch.compat import divide_
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.adamw import global_norm
@@ -173,8 +174,9 @@ def accumulate_grads(grad_fn: Callable, params: dict,
                      accum_dtype: torch.dtype):
     """(metrics, grads) of ``grad_fn`` averaged over ``accum_steps``
     microbatches of ``batch`` (:func:`_microbatch`), the gradient sums
-    kept at ``accum_dtype``; at ``accum_steps`` 1 the gradients keep the
-    params' dtype."""
+    kept at ``accum_dtype`` and divided as the jitted reference divides
+    (:func:`~repro_torch.compat.divide_`); at ``accum_steps`` 1 the
+    gradients keep the params' dtype."""
     if accum_steps == 1:
         return grad_fn(params, batch)
     g_sum, m_sum = None, None
@@ -191,8 +193,8 @@ def accumulate_grads(grad_fn: Callable, params: dict,
             g_sum[k].add_(t.to(accum_dtype))
         del g
         m_sum = {k: m_sum[k] + m[k] for k in m_sum}
-    grads = {k: t.div_(accum_steps) for k, t in g_sum.items()}
-    return {k: t / accum_steps for k, t in m_sum.items()}, grads
+    grads = {k: divide_(t, accum_steps) for k, t in g_sum.items()}
+    return {k: divide_(t, accum_steps) for k, t in m_sum.items()}, grads
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,

@@ -49,10 +49,14 @@ the gemma2 / gemma-2b reduced engines (fp32, TF32 off) give the CPU's
 streams, greedy and sampled; so do the seamless and internvl2 reduced
 engines, whose cross-attention decode (query position 2^30 over a ring
 with a tail of empty slots) and non-causal head_dim-64 attention are
-held to the plain versions at seamless's full-width shapes.
+held to the plain versions at seamless's full-width shapes.  NVML
+(``core.nvml``): the card's NVML device found by torch's UUID with
+torch's name; the energy counter rises under a matmul loop, and the
+mean and instant power lie within 1.05 x the enforced limit.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -1885,3 +1889,39 @@ def test_local_dp_step_card_matches_cpu(dp_group, compress):
                 assert bad.sum() <= want.size // 100, key
             np.testing.assert_allclose(got[bad], want[bad], atol=2 * lr,
                                        rtol=0, err_msg=key)
+
+
+def test_nvml_device_is_torchs_by_uuid(cuda):
+    """NVML's device for cuda:0 is found by torch's UUID, and its name
+    and UUID are torch's (``nvml.Device`` raises otherwise)."""
+    from repro_torch.core import nvml
+    ok, why = nvml.available()
+    assert ok, why
+    dev = nvml.Device(0)
+    props = torch.cuda.get_device_properties(0)
+    assert dev.name == torch.cuda.get_device_name(0) == props.name
+    assert dev.uuid == dev.nvml_uuid == nvml.nvml_uuid(props.uuid)
+    assert dev.uuid.startswith("GPU-")
+
+
+def test_nvml_counter_rises_under_a_loop_within_the_limit(cuda):
+    """A bf16 matmul loop over ~30 counter periods: the counter rises by
+    at least 10 updates, and the mean and the instant power lie in (0,
+    1.05 x the enforced limit]."""
+    from repro_torch.core import nvml
+    dev = nvml.Device(0)
+    a = torch.randn((4096, 4096), device="cuda").bfloat16()
+    with nvml.EnergyWindow(dev, poll_s=1e-3) as w:
+        t_end = time.perf_counter() + 30.0
+        while len(w.points) <= 30 and time.perf_counter() < t_end:
+            for _ in range(8):
+                b = a @ a
+            b.sum().item()
+    assert w.updates >= 10 and w.joules > 0 and w.counter_joules >= w.joules
+    assert w.seconds == pytest.approx(w.updates * w.period_s, rel=0.5)
+    limit = dev.power_limit_w()
+    assert w.end.limit_w == limit > 0
+    assert 0 < w.watts <= 1.05 * limit
+    assert 0 < dev.power_w() <= 1.05 * limit
+    sm, mem = dev.clocks_mhz()
+    assert sm > 0 and mem > 0 and dev.temperature_c() > 0

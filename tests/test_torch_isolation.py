@@ -524,8 +524,20 @@ def test_data_parallel_modules_and_examples_are_checked():
             "src/repro_torch/examples/train_100m.py"} <= names
 
 
+def test_energy_modules_and_new_examples_are_checked():
+    """The energy model, the NVML readings and the serving examples are
+    among the files the import check reads."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/core/energy.py",
+            "src/repro_torch/core/nvml.py",
+            "src/repro_torch/examples/serve_demo.py",
+            "src/repro_torch/examples/long_context.py",
+            "src/repro_torch/examples/characterize.py"} <= names
+
+
 @pytest.mark.parametrize("name,argv", [
-    ("quickstart", []), ("train_100m", ["--steps", "1", "--ckpt", "unused"])])
+    ("quickstart", []), ("train_100m", ["--steps", "1", "--ckpt", "unused"]),
+    ("serve_demo", []), ("long_context", []), ("characterize", [])])
 def test_examples_default_to_the_card(no_card, name, argv, tmp_path,
                                       monkeypatch):
     """Each example runs on the card unless ``--device cpu`` is given:

@@ -29,6 +29,19 @@ against the port's single-process step, on the CPU.
   order, ``make_train_step``'s in ``global_norm``'s).
 * The uncompressed mean's buckets at world 1: their grouping, and each
   leaf's own elements back in place.
+* Three gloo ranks: ``reduce_gradients`` (uncompressed) and
+  ``reduce_metrics`` against the reference's jitted ``pmean`` over 3
+  forced host devices.  Where the three ranks' sums are exact in fp32
+  in any order, only the final scaling rounds: bit-identical, and the
+  data are such that a plain ``/ 3`` differs.  On general data the
+  summation order may differ: within 2^-22 x the sum of the ranks'
+  magnitudes, twice the first-order bound (2 roundings of a 3-term sum
+  each way, 4u, times ~1/3, plus 2 roundings of the products, 2u / 3:
+  2u = 2^-23 of that sum, u = 2^-24).
+* Accumulation over 3 microbatches (``accumulate_grads``) against the
+  reference's jitted ``g / 3`` on one fixed, exact sum, in fp32 and in
+  the bf16 accum dtype: bit-identical (in bf16 a ``/ 3`` rounds alike:
+  the two fp32 results never straddle a bf16 rounding point).
 * Convergence over 30 steps, compressed and not: the final loss below
   0.2 x the first, as ``tests/test_local_dp.py``.
 """
@@ -276,6 +289,66 @@ def test_two_gloo_ranks_match_train_step(tmp_path):
     for r, got in enumerate(ranks):
         for k, w in want.items():
             assert got[k].tobytes() == w.tobytes(), (r, k)
+
+
+def test_world3_mean_is_the_jitted_pmean(tmp_path):
+    store = str(tmp_path / "pmean.store")
+    outs = [str(tmp_path / f"port_{r}.npz") for r in range(3)]
+    cases.run([("ref_pmean", str(tmp_path / "ref.npz"), 3)]
+              + [("port_pmean", 3, r, store, outs[r]) for r in range(3)])
+    want = dict(np.load(tmp_path / "ref.npz"))
+    sets = [cases._flat(cases.pmean_set(r)) for r in range(3)]
+    exact = [k for k in want if k.startswith("exact/")]
+    for group in ([k for k in exact if want[k].ndim],     # gradients
+                  [k for k in exact if not want[k].ndim]):  # metrics
+        total = np.concatenate([(sets[0][k] + sets[1][k] + sets[2][k])
+                                .reshape(-1) for k in group])  # exact
+        w = np.concatenate([want[k].reshape(-1) for k in group])
+        assert (total / np.float32(3) != w).any(), group
+    for r, out in enumerate(outs):
+        got = dict(np.load(out))
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            if k in exact:
+                assert got[k].tobytes() == w.tobytes(), (r, k)
+            else:
+                mag = sum(np.abs(x[k]).astype(np.float64) for x in sets)
+                diff = np.abs(got[k].astype(np.float64) - w)
+                assert (diff <= 2.0 ** -22 * mag).all(), (r, k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_accum3_mean_is_the_jitted_division(dtype):
+    """``accumulate_grads`` over 3 microbatches: one fixed gradient sum
+    (each microbatch's values small integers times 2^-8, so that the sum
+    is exact in ``dtype``) and its metrics' sum against the jitted
+    ``g / 3`` of the reference's accumulation."""
+    from repro_torch.train.step import accumulate_grads
+    rng = np.random.default_rng(21)
+    top = 2 ** 20 if dtype == "float32" else 80     # |sum| < 2^24 / 2^8
+    parts = [{"g": (rng.integers(-top, top, (17, 40)) * 2.0 ** -8).astype(
+        np.float32)} for _ in range(3)]
+    metrics = [{"loss": np.float32(rng.integers(-2 ** 20, 2 ** 20)
+                                   * 2.0 ** -8)} for _ in range(3)]
+
+    def grad_fn(params, batch):
+        i = int(batch["i"][0])
+        return ({k: torch.tensor(v) for k, v in metrics[i].items()},
+                {k: torch.from_numpy(v) for k, v in parts[i].items()})
+
+    m, g = accumulate_grads(grad_fn, {}, {"i": torch.arange(3)}, 3,
+                            getattr(torch, dtype))
+    jdt = getattr(jnp, dtype)
+    g_sum = sum(jnp.asarray(p["g"]).astype(jdt) for p in parts)
+    m_sum = sum(jnp.asarray(x["loss"]) for x in metrics)
+    divide = jax.jit(lambda t: t / 3)
+    want_g = np.asarray(divide(g_sum).astype(jnp.float32))
+    assert g["g"].dtype == getattr(torch, dtype)
+    assert g["g"].float().numpy().tobytes() == want_g.tobytes()
+    assert m["loss"].numpy().tobytes() == np.asarray(
+        divide(m_sum)).tobytes()
+    if dtype == "float32":           # the data tell the two apart
+        assert (np.asarray(g_sum) / np.float32(3) != want_g).any()
 
 
 @pytest.mark.parametrize("compress", [False, True])

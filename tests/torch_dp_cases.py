@@ -13,6 +13,12 @@ Each case writes an ``.npz`` and prints ``CASE_OK``:
         WORLD RANK STORE OUT
     PYTHONPATH=src python tests/torch_dp_cases.py port_dp \\
         WORLD RANK STORE OUT
+    # the uncompressed mean: the reference's jitted pmean over WORLD
+    # forced host devices, then one gloo rank of the port's
+    # reduce_gradients and reduce_metrics
+    PYTHONPATH=src python tests/torch_dp_cases.py ref_pmean OUT WORLD
+    PYTHONPATH=src python tests/torch_dp_cases.py port_pmean \\
+        WORLD RANK STORE OUT
 
 The gloo ranks pair over the loopback device (``GLOO_SOCKET_IFNAME=lo``,
 set by the caller) and run one torch thread each.
@@ -53,6 +59,27 @@ def leaf_set(rank: int) -> dict:
                         "alt": alt.reshape(3, 7)}}
 
 
+def pmean_set(rank: int) -> dict:
+    """Rank ``rank``'s leaves for the uncompressed mean: under
+    ``exact/``, small integers times 2^-8, whose sums over up to 4 ranks
+    are exact in fp32 in any order (|k| < 2^20), so that only the final
+    scaling rounds; under ``general/``, normal values over six decades.
+    The 0-d leaves are metrics, the others gradients."""
+    rng = np.random.default_rng(100 + rank)
+
+    def exact(shape):
+        return (rng.integers(-2 ** 20, 2 ** 20, shape)
+                * 2.0 ** -8).astype(np.float32)
+
+    def general(shape):
+        return (rng.standard_normal(shape)
+                * 10.0 ** rng.uniform(-3, 3, shape)).astype(np.float32)
+
+    return {kind: {"vec": fn(1000), "mat": fn((33, 70)),
+                   **{f"metric{i}": fn(()) for i in range(8)}}
+            for kind, fn in (("exact", exact), ("general", general))}
+
+
 def _flat(tree: dict, prefix: str = "") -> dict:
     out = {}
     for k in sorted(tree):
@@ -67,9 +94,7 @@ def _flat(tree: dict, prefix: str = "") -> dict:
 def ref_compress(out: str, *worlds: int) -> None:
     """The reference's result at each world of ``worlds``, saved as
     ``{out}_{world}.npz``."""
-    os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
-                               + os.environ.get("XLA_FLAGS", ""))
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    devices = _xla_devices(4)
     import jax
     from jax.sharding import Mesh, PartitionSpec as P
     from repro.compat import shard_map
@@ -77,7 +102,7 @@ def ref_compress(out: str, *worlds: int) -> None:
 
     key = jax.random.fold_in(jax.random.PRNGKey(KEY_SEED), KEY_STEP)
     for world in worlds:
-        mesh = Mesh(np.array(jax.devices()[:world]), ("data",))
+        mesh = Mesh(np.array(devices[:world]), ("data",))
         stacked = jax.tree.map(lambda *xs: np.stack(xs),
                                *[leaf_set(r) for r in range(world)])
 
@@ -89,6 +114,57 @@ def ref_compress(out: str, *worlds: int) -> None:
                                in_specs=(P("data"), P()), out_specs=P()))
         np.savez(f"{out}_{world}.npz",
                  **_flat(jax.tree.map(np.asarray, fn(stacked, key))))
+
+
+def _xla_devices(n: int):
+    """JAX on the CPU with ``n`` forced host devices (set before JAX
+    starts)."""
+    os.environ["XLA_FLAGS"] = (f"--xla_force_host_platform_device_count={n} "
+                               + os.environ.get("XLA_FLAGS", ""))
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+    return jax.devices()
+
+
+def ref_pmean(out: str, world: int) -> None:
+    """The reference's uncompressed mean, ``jax.lax.pmean`` of every
+    leaf of :func:`pmean_set` under ``jit`` and ``shard_map`` over
+    ``world`` host devices (as its local DP step reduces gradients and
+    metrics), saved to ``out``."""
+    devices = _xla_devices(world)
+    import jax
+    from jax.sharding import Mesh, PartitionSpec as P
+    from repro.compat import shard_map
+    mesh = Mesh(np.array(devices[:world]), ("data",))
+    stacked = jax.tree.map(lambda *xs: np.stack(xs),
+                           *[pmean_set(r) for r in range(world)])
+
+    def local(g):
+        return jax.tree.map(lambda x: jax.lax.pmean(x[0], "data"), g)
+
+    fn = jax.jit(shard_map(local, mesh=mesh, in_specs=(P("data"),),
+                           out_specs=P()))
+    np.savez(out, **_flat(jax.tree.map(np.asarray, fn(stacked))))
+
+
+def port_pmean(world: int, rank: int, store: str, out: str) -> None:
+    """One gloo rank of the port's uncompressed mean of
+    :func:`pmean_set`: ``local_dp.reduce_gradients`` of the gradients
+    and ``local_dp.reduce_metrics`` of the 0-d leaves."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.train.local_dp import reduce_gradients, reduce_metrics
+    _init_gloo(world, rank, store)
+    try:
+        leaves = {k: torch.from_numpy(v)
+                  for k, v in _flat(pmean_set(rank)).items()}
+        got = reduce_gradients({k: v for k, v in leaves.items() if v.ndim},
+                               None, world)
+        got.update(reduce_metrics({k: v for k, v in leaves.items()
+                                   if not v.ndim}, None, world))
+        np.savez(out, **{k: v.numpy() for k, v in got.items()})
+    finally:
+        dist.destroy_process_group()
 
 
 def _init_gloo(world: int, rank: int, store: str) -> None:
@@ -204,6 +280,10 @@ if __name__ == "__main__":
         port_compress(int(args[0]), int(args[1]), args[2], args[3])
     elif case == "port_dp":
         port_dp(int(args[0]), int(args[1]), args[2], args[3])
+    elif case == "ref_pmean":
+        ref_pmean(args[0], int(args[1]))
+    elif case == "port_pmean":
+        port_pmean(int(args[0]), int(args[1]), args[2], args[3])
     else:
         raise SystemExit(f"unknown case {case!r}")
     print("CASE_OK", case)
